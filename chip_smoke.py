@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 Phases (any failed check exits non-zero; nothing is caught and skipped):
 
-1. Build the kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+1. Build the four kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once) and print the compiler's register report.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at the non-divisible sweep shapes of the tests,
@@ -20,8 +20,24 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
    G-SAC [5, 3] (complex points, the four-GEMM path) for 4.  The kernels'
    launch counts are zeroed just before each run and must grow in it.
 5. Profile one full-width L-SAC batch and print device time by kernel.
-6. Print the card's name and power limit, one ``{"kernels": [...]}`` line,
-   and as the last line ``{"ok": true, "device": {...}}``.
+6. The language model's kernels against their plain versions on the card:
+   flash attention at the sweep shapes and at hymba-1.5b's prefill
+   (4 x 25/5 heads x 8192 x 64, bf16, window 1024 and full causal; to 1e-2
+   elementwise and in relative Frobenius error), the
+   selective scan at the sweep shapes and at hymba's (4 x 8192 x 3200 x 16,
+   bf16, B and C strided); kernel, plain version and library call (SDPA;
+   none for the scan) timed with CUDA events beside the card's bound.
+7. hymba-smoke in float32: the same weights on the card and on the CPU,
+   prefill and decode logits within 2e-4 and 2e-3.
+8. hymba-1.5b at full width (bf16, seeded random weights): a 1 x 2048
+   prefill with the kernels against the plain versions (relative Frobenius
+   error of the logits <= 5e-2), then the served run — a 4 x 8192 prefill
+   and 32 greedy decode steps — with the launch counts zeroed before it:
+   32 launches of each kernel, all in the prefill.
+9. Profile one full-width hymba prefill, and 4 decode steps after it, and
+   print device time by kernel.
+10. Print the card's name and power limit, one ``{"kernels": [...]}`` line,
+    and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -46,6 +62,13 @@ PEAK_FLOPS = {"float32": 67e12,        # FP32 on the CUDA cores (no TF32)
               "float64": 67e12}
 PEAK_BYTES = 3.35e12                   # HBM3
 TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+# Flash attention at hymba's prefill length: with N(0, 1) q and k most
+# outputs are about sqrt(e / keys), 0.02-0.05, so the sweep's bf16 5e-2
+# would pass a kernel wrong by a typical value.  Elementwise atol = rtol and
+# the relative Frobenius error of each batch row are held to this, between
+# the kernel's measured max error (3.9e-3, one bf16 ulp; PERF.md) and the
+# output scale.
+FLASH_LONG_TOL = 1e-2
 
 MATMUL_SWEEP = [(1, 64, 64, 64), (3, 100, 200, 60), (2, 96, 200, 64),
                 (4, 33, 77, 129), (1, 128, 1024, 128)]
@@ -54,6 +77,19 @@ ENCODE_SWEEP = [(24, 8, 100, 1000), (5, 3, 70, 33), (2, 1, 16, 16),
 SERVE_ARGS = ["--rows", "2048", "--inner", "32768", "--K", "8", "--N", "24",
               "--batch-size", "4", "--device", "cuda", "--backend", "device",
               "--deadlines", "1.1,1.6,3.0,9.0", "--json"]
+# (B, H, Hkv, Lq, Lkv, d): the reference's flash sweep, hymba's heads, and
+# the other head dims the kernel is built for
+FLASH_SWEEP = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 64, 64, 32),
+               (1, 8, 1, 32, 32, 16), (1, 2, 1, 16, 80, 16),
+               (1, 2, 2, 50, 70, 16), (1, 25, 5, 300, 300, 64),
+               (2, 4, 1, 70, 70, 128), (1, 8, 1, 40, 40, 256)]
+# (Bt, L, Dm, S): the reference's scan sweep plus odd state sizes
+SCAN_SWEEP = [(1, 32, 16, 4), (2, 48, 24, 16), (2, 100, 40, 8),
+              (1, 33, 17, 16), (2, 40, 70, 5), (1, 20, 9, 32)]
+# hymba-1.5b serving: a cut of the repo's prefill_32k (32 x 32768) that fits
+# the script's time limit, then greedy decode
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "hymba-1.5b", 4, 8192, 32
+SFU_PER_SM_CLOCK = 16        # exp results per SM per clock (compute 9.0)
 
 
 def log(msg: str) -> None:
@@ -85,12 +121,30 @@ def time_ms(fn, iters: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sm_count_and_max_clock() -> tuple[int, float]:
+    """SMs and the maximum SM clock (Hz) of card 0."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count, \
+        mhz * 1e6
+
+
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     """The least time the card could take: the larger of operations over
     the peak rate for the type and bytes over the memory rate."""
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rel_fro(got, want) -> float:
+    """Relative Frobenius error ||got - want|| / ||want|| in float32."""
+    g, w = got.float(), want.float()
+    return float(torch.linalg.vector_norm(g - w)
+                 / torch.linalg.vector_norm(w))
 
 
 def check_close(got, want, rtol: float, atol: float, what: str):
@@ -254,6 +308,368 @@ def phase_poly_encode(dev, gen) -> dict:
     return out
 
 
+def _flash_pairs(Lq: int, Lkv: int, q_offset: int, window: int) -> int:
+    """Unmasked (query, key) pairs of one causal head."""
+    total = 0
+    for i in range(Lq):
+        hi = min(Lkv - 1, q_offset + i)
+        lo = max(0, q_offset + i - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def _sdpa(q, k, v, window: int):
+    """One PyTorch call computing the same attention — the yardstick, never
+    used by the port: SDPA with ``enable_gqa`` and the causal or window
+    mask, on its fused backends only (the math backend would materialize
+    the scores)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    mask = None
+    if window:
+        pos = torch.arange(q.shape[2], device=q.device)
+        dist = pos[:, None] - pos[None, :]
+        mask = (dist >= 0) & (dist < window)
+
+    def call():
+        with sdpa_kernel(fused):
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+    return call
+
+
+def phase_flash(dev, gen) -> dict:
+    """The flash kernel against its plain version: the sweep shapes, then
+    hymba's prefill (B=4, H=25, Hkv=5, L=8192, d=64, bf16) with the window
+    of 29 layers (1024) and full causal attention (3 layers).  The plain
+    version runs batch row by batch row so its (H, L, L) scores fit."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    for B, H, Hkv, Lq, Lkv, d in FLASH_SWEEP:
+        for dt in ("float32", "bfloat16"):
+            tdt = getattr(torch, dt)
+            q = torch.randn(B, H, Lq, d, device=dev, generator=gen).to(tdt)
+            k = torch.randn(B, Hkv, Lkv, d, device=dev, generator=gen).to(tdt)
+            v = torch.randn(B, Hkv, Lkv, d, device=dev, generator=gen).to(tdt)
+            for causal, window in ((True, 0), (True, 8), (False, 24)):
+                off = Lkv - Lq
+                check_close(
+                    flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=off),
+                    attention_ref(q, k, v, causal=causal,
+                                  window=window or None, q_offset=off),
+                    TOL[dt], TOL[dt], f"flash {dt} {(B, H, Hkv, Lq, Lkv, d)}"
+                    f" causal={causal} window={window}")
+    log("flash_attention: sweep shapes agree with the plain version "
+        "(float32, bfloat16; causal, window 8, non-causal window 24)")
+    B, H, Hkv, L, d = 4, 25, 5, LM_PROMPT, 64
+    q, k, v = (torch.randn(B, n, L, d, device=dev, generator=gen)
+               .to(torch.bfloat16) for n in (H, Hkv, Hkv))
+    out = {}
+    for window in (1024, 0):
+        got = flash_attention(q, k, v, window=window)
+        err = fro = 0.0
+        for b in range(B):
+            want = attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                 window=window or None)
+            what = f"flash hymba b={b} window={window}"
+            err = max(err, check_close(got[b:b + 1], want, FLASH_LONG_TOL,
+                                       FLASH_LONG_TOL, what))
+            fro = max(fro, rel_fro(got[b:b + 1], want))
+            if fro > FLASH_LONG_TOL:
+                fail(f"{what}: relative Frobenius error {fro:.3e} (limit "
+                     f"{FLASH_LONG_TOL})")
+            del want
+        lib = _sdpa(q, k, v, window)
+        lib_err = rel_fro(got, lib())
+        pairs = B * H * _flash_pairs(L, L, 0, window)
+        flops = 4.0 * d * pairs
+        nbytes = 2 * (2 * B * H * L * d + 2 * B * Hkv * L * d)
+        b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+        row = {"shape": [B, H, Hkv, L, d], "dtype": "bfloat16",
+               "window": window, "max_abs_err": err, "rel_fro": fro,
+               "unmasked_pairs": pairs,
+               "flops": flops,
+               "ms": time_ms(lambda: flash_attention(q, k, v, window=window)),
+               "plain_ms": time_ms(lambda: [attention_ref(
+                   q[b:b + 1], k[b:b + 1], v[b:b + 1], window=window or None)
+                   for b in range(B)], 1),
+               "library_ms": time_ms(lib), "library_rel_fro": lib_err,
+               "bound_ms": b_ms, "bound_by": b_by}
+        row["tflops"] = flops / row["ms"] / 1e9
+        out[f"window{window}" if window else "causal"] = row
+        log(f"flash hymba {B}x{H}/{Hkv}x{L}x{d} bf16 "
+            f"{'window ' + str(window) if window else 'full causal'}: "
+            f"kernel {row['ms']:.2f} ms ({row['tflops']:.1f} TFLOP/s over "
+            f"unmasked pairs), plain {row['plain_ms']:.2f} ms (4 batch rows),"
+            f" SDPA {row['library_ms']:.2f} ms, bound {b_ms:.3f} ms "
+            f"({b_by}); vs plain: max abs err {err:.3e}, rel. Frobenius "
+            f"{fro:.3e} (limits {FLASH_LONG_TOL}); rel. Frobenius vs SDPA "
+            f"{lib_err:.2e}")
+        del got
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_scan(dev, gen) -> dict:
+    """The scan kernel against its plain version: the sweep shapes (float32
+    and bfloat16, B and C as column views of one projection), then hymba's
+    prefill shape (Bt=4, L=8192, Dm=3200, S=16, bf16)."""
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    def inputs(Bt, L, Dm, S, tdt):
+        x = torch.randn(Bt, L, Dm, device=dev, generator=gen).to(tdt)
+        dt = (0.01 + 0.19 * torch.rand(Bt, L, Dm, device=dev,
+                                       generator=gen)).to(tdt)
+        A = -(0.1 + 0.9 * torch.rand(Dm, S, device=dev, generator=gen))
+        xp = torch.randn(Bt, L, 100 + 2 * S, device=dev,
+                         generator=gen).to(tdt)
+        D = torch.randn(Dm, device=dev, generator=gen)
+        return x, dt, A, xp[..., 100:100 + S], xp[..., 100 + S:], D
+
+    for shape in SCAN_SWEEP:
+        for dt in ("float32", "bfloat16"):
+            args = inputs(*shape, getattr(torch, dt))
+            y, h = ssm_scan(*args, return_final=True)
+            want_y, want_h = ssm_scan_ref(*args, return_final=True)
+            tol = 1e-4 if dt == "float32" else 5e-2
+            check_close(y, want_y, tol, tol, f"ssm_scan y {dt} {shape}")
+            check_close(h, want_h, 1e-4, 1e-4, f"ssm_scan h {dt} {shape}")
+    log("ssm_scan: sweep shapes agree with the plain version (y: float32 "
+        "1e-4, bfloat16 5e-2; final state 1e-4)")
+    Bt, L, Dm, S = LM_BATCH, LM_PROMPT, 3200, 16
+    args = inputs(Bt, L, Dm, S, torch.bfloat16)
+    y, h = ssm_scan(*args, return_final=True)
+    want_y, want_h = ssm_scan_ref(*args, return_final=True)
+    err = check_close(y, want_y, 5e-2, 5e-2, "ssm_scan hymba y")
+    h_err = check_close(h, want_h, 1e-4, 1e-4, "ssm_scan hymba h_final")
+    nbytes = 2 * (3 * Bt * L * Dm + 2 * Bt * L * S) + 4 * (
+        Dm * S + Dm + Bt * Dm * S)
+    exps = Bt * L * Dm * S
+    sms, clock = sm_count_and_max_clock()
+    t_exp = exps / (SFU_PER_SM_CLOCK * sms * clock) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    b_ms, b_by = (t_exp, "operations") if t_exp >= t_bytes else \
+        (t_bytes, "bytes")
+    row = {"shape": [Bt, L, Dm, S], "dtype": "bfloat16", "max_abs_err": err,
+           "h_final_max_abs_err": h_err, "bytes": nbytes, "exps": exps,
+           "sm_count": sms, "max_sm_clock_hz": clock,
+           "exp_bound_ms": t_exp, "byte_bound_ms": t_bytes,
+           "ms": time_ms(lambda: ssm_scan(*args, return_final=True), 5),
+           "plain_ms": time_ms(lambda: ssm_scan_ref(*args,
+                                                    return_final=True), 1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"ssm_scan hymba {Bt}x{L}x{Dm}x{S} bf16 (B, C strided): kernel "
+        f"{row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, library none, "
+        f"bound {b_ms:.3f} ms ({b_by}; bytes {t_bytes:.3f} ms, {exps:.3g} "
+        f"exps {t_exp:.3f} ms at {SFU_PER_SM_CLOCK}/SM/clock x {sms} SMs x "
+        f"{clock / 1e9:.2f} GHz); max abs err y {err:.3e}, h_final "
+        f"{h_err:.3e}")
+    del args, y, h, want_y, want_h
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_small_lm() -> dict:
+    """hymba-smoke in float32, the same weights on the card (kernels) and
+    on the CPU (plain versions): prefill logits to 2e-4, decode to 2e-3."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    cfg = get_arch(LM_ARCH, smoke=True)
+    cpu = init_params(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    gpu = init_params(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48),
+                           generator=torch.Generator().manual_seed(1))
+    worst = {}
+    for name, model, dev in (("card", gpu, "cuda"), ("cpu", cpu, "cpu")):
+        logits, state = make_prefill_step(cfg, 48, device=dev)(
+            model, {"tokens": tokens[:, :40]})
+        step = make_decode_step(cfg, device=dev)
+        outs = [logits]
+        for t in range(40, 48):
+            logits, state = step(model, tokens[:, t:t + 1], state)
+            outs.append(logits)
+        worst[name] = [o.cpu() for o in outs]
+    pre = check_close(worst["card"][0], worst["cpu"][0], 2e-4, 2e-4,
+                      "hymba-smoke prefill logits card vs CPU")
+    dec = max(check_close(a, b, 2e-3, 2e-3, "hymba-smoke decode logits")
+              for a, b in zip(worst["card"][1:], worst["cpu"][1:]))
+    log(f"hymba-smoke float32: card (kernels) == CPU (plain versions); "
+        f"prefill logits max abs err {pre:.2e} (2e-4), decode {dec:.2e} "
+        "(2e-3)")
+    return {"prefill_max_abs_err": pre, "decode_max_abs_err": dec}
+
+
+def phase_full_lm(dev) -> tuple:
+    """hymba-1.5b at full width, bf16, random weights from a seed: (1) a
+    1 x 2048 prefill with the kernels against the same prefill with the
+    plain versions; (2) the served run, a 4 x 8192 prefill and 32 greedy
+    decode steps, with the kernels' launch counts zeroed just before it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention, ssm_scan
+    from repro_torch.models import init_params
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    cfg = get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    model = init_params(cfg, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    log(f"{cfg.name}: {n_params / 1e9:.3f} B parameters, "
+        f"{weight_bytes / 1e9:.2f} GB on the card, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tok_gen = torch.Generator(device=dev)
+    tok_gen.manual_seed(13)
+
+    # (1) kernels against plain versions on one 2048-token prompt
+    prompt = torch.randint(0, cfg.vocab_size, (1, 2048), device=dev,
+                           generator=tok_gen)
+    with_k, _ = make_prefill_step(cfg, 2048)(model, {"tokens": prompt})
+    t0 = time.perf_counter()
+    plain, _ = make_prefill_step(cfg, 2048, use_kernels=False)(
+        model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    fro = rel_fro(with_k, plain)
+    if not (bool(torch.isfinite(with_k).all()) and fro <= 5e-2):
+        fail(f"{cfg.name} 1x2048 prefill: kernels vs plain relative "
+             f"Frobenius error {fro:.3e} (limit 5e-2) or non-finite logits")
+    log(f"{cfg.name} 1x2048 prefill, kernels vs plain versions: last-position"
+        f" logits relative Frobenius error {fro:.3e} (limit 5e-2; plain "
+        f"prefill {plain_s:.1f} s)")
+    del with_k, plain, prompt
+
+    # (2) the served run
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           device=dev, generator=tok_gen)
+    prefill_step = make_prefill_step(cfg, LM_PROMPT + LM_DECODE)
+    decode = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (flash_attention, ssm_scan):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, state = prefill_step(model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "ssm_scan": ssm_scan.launches}
+    finite = bool(torch.isfinite(logits).all())
+    generated = []
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE):
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        generated.append(nxt)
+        logits, state = decode(model, nxt, state)
+        finite &= bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    served = {"flash_attention": flash_attention.launches,
+              "ssm_scan": ssm_scan.launches}
+    if launches != {"flash_attention": cfg.n_layers,
+                    "ssm_scan": cfg.n_layers} or served != launches:
+        fail(f"{cfg.name} served run: launches {launches} in the prefill, "
+             f"{served} in all (want {cfg.n_layers} of each, none in decode)")
+    if not finite or state.pos != LM_PROMPT + LM_DECODE:
+        fail(f"{cfg.name} served run: non-finite logits or state at "
+             f"{state.pos}")
+    row = {"arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
+           "max_seq": LM_PROMPT + LM_DECODE, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+           "decode_s": decode_s,
+           "decode_ms_per_token": decode_s / LM_DECODE * 1e3,
+           "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
+           "peak_bytes": peak, "launches": served,
+           "plain_vs_kernels_rel_fro": fro, "plain_prefill_1x2048_s": plain_s,
+           "first_generated": torch.cat(generated, 1)[0, :8].tolist()}
+    log(f"{cfg.name} served (cut of prefill_32k: {LM_BATCH} x {LM_PROMPT} "
+        f"prompt, max_seq {LM_PROMPT + LM_DECODE}): prefill {prefill_s:.2f} s"
+        f" ({row['prefill_tokens_per_s']:.0f} tokens/s), decode "
+        f"{row['decode_ms_per_token']:.1f} ms per step of {LM_BATCH} tokens "
+        f"({row['decode_tokens_per_s']:.0f} tokens/s), peak device memory "
+        f"{peak / 2**30:.2f} GiB, launches {served}; every logit finite")
+    del state, logits
+    torch.cuda.empty_cache()
+    return row, model, prompt
+
+
+def phase_lm_breakdown(model, prompt) -> dict:
+    """Device time by kernel over one full-width hymba prefill and over 4
+    decode steps after it, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    cfg = get_arch(LM_ARCH)
+    step = make_prefill_step(cfg, LM_PROMPT + LM_DECODE)
+    decode = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    out = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, state = step(model, {"tokens": prompt})
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out["prefill"] = _device_rows(prof, wall_ms, f"breakdown ({cfg.name} "
+                                  f"prefill {LM_BATCH}x{LM_PROMPT}, "
+                                  "profiled)")
+    nxt = logits[:, -1].argmax(-1, keepdim=True)
+    logits, state = decode(model, nxt, state)             # warm-up step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            logits, state = decode(model, logits[:, -1].argmax(
+                -1, keepdim=True), state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out["decode"] = _device_rows(prof, wall_ms, f"breakdown ({cfg.name} 4 "
+                                 "decode steps after the prefill, profiled)")
+    host = sorted(((e.key, e.count, e.self_cpu_time_total / 1e3)
+                   for e in prof.key_averages()),
+                  key=lambda r: -r[2])[:8]
+    for name, count, ms in host:
+        log(f"  host {ms:9.2f} ms  x{count:<5d} {name[:80]}")
+    out["decode"]["host_top"] = [{"name": n, "count": c, "ms": ms}
+                                 for n, c, ms in host]
+    return out
+
+
+def _device_rows(prof, wall_ms: float, what: str) -> dict:
+    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0),
+                  key=lambda r: -r[2])
+    if not rows:
+        log(f"{what}: the profiler saw no device time (not measured)")
+        return {"wall_ms": wall_ms, "kernels": []}
+    busy_ms = sum(r[2] for r in rows)
+    log(f"{what}: {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f} %)")
+    for name, count, ms in rows[:12]:
+        log(f"  {ms:9.2f} ms  x{count:<5d} {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "kernels": [{"name": n, "count": c, "ms": ms}
+                        for n, c, ms in rows]}
+
+
 def _serve(argv):
     from repro_torch.launch.serve import build_parser, run_serve
     return run_serve(build_parser().parse_args(argv)).to_dict()
@@ -357,23 +773,8 @@ def phase_breakdown() -> dict:
         sched.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
-                   for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")
-                   and e.self_device_time_total > 0),
-                  key=lambda r: -r[2])
-    busy_ms = sum(r[2] for r in rows)
-    if not rows:
-        log("breakdown: the profiler saw no device time (not measured)")
-        return {"wall_ms": wall_ms, "kernels": []}
-    log(f"breakdown (lsac_ortho, one batch of 4, profiled): loop "
-        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({100 * busy_ms / wall_ms:.1f} %)")
-    for name, count, ms in rows[:10]:
-        log(f"  {ms:9.2f} ms  x{count:<5d} {name[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "kernels": [{"name": n, "count": c, "ms": ms}
-                        for n, c, ms in rows]}
+    return _device_rows(prof, wall_ms, "breakdown (lsac_ortho, one batch "
+                        "of 4, profiled): loop")
 
 
 def main(argv=None) -> int:
@@ -405,6 +806,12 @@ def main(argv=None) -> int:
     lsac = phase_full_serve("lsac_ortho", 8)
     gsac = phase_full_serve("gsac_k1_5", 4)
     breakdown = phase_breakdown()
+    flash = phase_flash(dev, gen)
+    scan = phase_scan(dev, gen)
+    small_lm = phase_small_lm()
+    lm, model, prompt = phase_full_lm(dev)
+    lm_breakdown = phase_lm_breakdown(model, prompt)
+    del model, prompt
 
     # The exact L-SAC fit reads the first R completions.  Batch 1's
     # completion order gives a well-conditioned fit: its exact state is held
@@ -422,6 +829,7 @@ def main(argv=None) -> int:
     if not rows[-1]["mean_err"] < rows[0]["mean_err"]:
         fail(f"lsac_ortho: last deadline error {rows[-1]['mean_err']:.3e} "
              f"not below the first {rows[0]['mean_err']:.3e}")
+
     log(f"done in {time.perf_counter() - t_start:.1f} s")
 
     runs = {"lsac_ortho": lsac, "gsac_k1_5": gsac}
@@ -450,21 +858,39 @@ def main(argv=None) -> int:
          "bound_ms": enc_main["bound_ms"], "bound_by": enc_main["bound_by"],
          "library_ms": enc_main["library_ms"]},
     ]
-    not_ported = [
-        {"name": "flash_attention", "status": "not_ported",
-         "replaces": "src/repro/kernels/flash_attention/kernel.py:96"},
-        {"name": "ssm_scan", "status": "not_ported",
-         "replaces": "src/repro/kernels/ssm_scan/kernel.py:55"},
+    win = flash["window1024"]
+    kernels += [
+        {"name": "flash_attention", "status": "ported", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
+         "launches": lm["launches"]["flash_attention"],
+         "launches_by_run": {"hymba_served": lm["launches"][
+             "flash_attention"]},
+         "shape": win["shape"], "window": win["window"],
+         "max_abs_err": win["max_abs_err"], "ms": win["ms"],
+         "plain_ms": win["plain_ms"], "bound_ms": win["bound_ms"],
+         "bound_by": win["bound_by"], "library_ms": win["library_ms"]},
+        {"name": "ssm_scan", "status": "ported", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan/kernel.py:55",
+         "launches": lm["launches"]["ssm_scan"],
+         "launches_by_run": {"hymba_served": lm["launches"]["ssm_scan"]},
+         "shape": scan["shape"], "max_abs_err": scan["max_abs_err"],
+         "ms": scan["ms"], "plain_ms": scan["plain_ms"],
+         "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
+         "library_ms": None},
     ]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "coded_matmul": mm, "poly_encode": enc,
              "small_serve": small, "serve": runs, "breakdown": breakdown,
+             "flash_attention": flash, "ssm_scan": scan,
+             "small_lm": small_lm, "lm": lm, "lm_breakdown": lm_breakdown,
              "kernels": kernels},
             indent=2))
     print(card)
-    print(json.dumps({"kernels": kernels, "not_ported": not_ported}))
+    print(json.dumps({"kernels": kernels, "not_ported": []}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,8 @@
+"""Architecture configs (copies of the reference's, for the families the
+port runs) + shape specs."""
+from .base import SHAPES, ArchConfig, ShapeSpec
+from .registry import (ARCH_NAMES, PORTED_FAMILIES, check_family, get_arch,
+                       get_shape)
+
+__all__ = ["SHAPES", "ArchConfig", "ShapeSpec", "ARCH_NAMES",
+           "PORTED_FAMILIES", "check_family", "get_arch", "get_shape"]

@@ -6,7 +6,9 @@ evaluation points, decode basis) and the request operands.
 reading its public attributes as numpy values — duck typing on the class
 name, so nothing of the reference is imported — with bit-equal
 ``generator()`` and ``estimate_weights``.  :func:`to_device` moves numpy
-operands onto a device.
+operands onto a device.  :func:`lm_params_from_reference` carries a
+reference language model's parameter tree (numpy arrays) into the port's
+:class:`repro_torch.models.LM`.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from .core import (ChebyshevBasis, EpsApproxMatDotCode, GroupSACCode,
                    LagrangeCode, LayerSACCode, MappedChebyshevBasis,
                    MatDotCode, MonomialBasis, OrthoMatDotCode)
 
-__all__ = ["code_from_reference", "basis_from_reference", "to_device"]
+__all__ = ["code_from_reference", "basis_from_reference", "to_device",
+           "lm_params_from_reference"]
 
 
 def basis_from_reference(basis):
@@ -76,3 +79,53 @@ def to_device(arrays, device, dtype: torch.dtype | None = None):
     if isinstance(arrays, (list, tuple)):
         return type(arrays)(to_device(v, device, dtype) for v in arrays)
     return torch.as_tensor(np.asarray(arrays), device=device, dtype=dtype)
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, as ``np.asarray`` gives
+    them from jax) as a CPU tensor of the same dtype."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def _flatten(tree, prefix: str, out: dict) -> None:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            _flatten(val, f"{prefix}{key}.", out)
+        else:
+            out[prefix + key] = val
+
+
+def _index(tree, i: int):
+    """Layer ``i`` of a tree stacked on a leading layer axis."""
+    return {k: _index(v, i) if isinstance(v, dict) else np.asarray(v)[i]
+            for k, v in tree.items()}
+
+
+def lm_params_from_reference(tree, cfg):
+    """The port's :class:`~repro_torch.models.LM` (on the CPU) holding the
+    numbers of a reference parameter tree.
+
+    ``tree`` is the reference's ``init_params`` tree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``): ``embed``, ``layers`` (stacked
+    on a leading layer axis when ``cfg.use_scan``, else a list of per-layer
+    dicts), ``final_norm`` and, untied, ``lm_head``.  Each leaf keeps its
+    dtype (``A_log`` and ``D`` are float32 in every model).
+    """
+    from .models import LM
+    layers = tree["layers"]
+    flat: dict = {}
+    for i in range(cfg.n_layers):
+        layer = layers[i] if isinstance(layers, (list, tuple)) else \
+            _index(layers, i)
+        _flatten(layer, f"layers.{i}.", flat)
+    for key in ("embed", "final_norm", "lm_head"):
+        if key in tree:
+            flat[key] = tree[key]
+    state = {k: _tensor(v) for k, v in flat.items()}
+    model = LM(cfg, dtype=state["embed"].dtype, device="cpu")
+    model.load_state_dict(state, strict=True)
+    return model
+

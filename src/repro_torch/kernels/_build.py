@@ -3,8 +3,8 @@
 On first use each source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with :mod:`ctypes`:
 every pointer and the stream are ``c_void_p``, and every C entry returns
-``cudaGetLastError()`` of its launch, which :func:`check` turns into an
-exception.  Libraries go to ``build/repro_torch/`` at the root of the
+``cudaGetLastError()`` of its launch, or :data:`UNSUPPORTED` for arguments
+its kernel does not take, which :func:`check` turns into an exception.  Libraries go to ``build/repro_torch/`` at the root of the
 checkout, named by a hash of the source and the flags, so an edited source
 is rebuilt and an unchanged one is reused.  :func:`build_all` starts one
 ``nvcc`` per source, all at once.
@@ -21,16 +21,17 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "build_log", "load", "check",
-           "library_path"]
+__all__ = ["SOURCES", "UNSUPPORTED", "build_all", "build_log", "load",
+           "check", "library_path"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("coded_matmul", "poly_encode")
+SOURCES = ("coded_matmul", "poly_encode", "flash_attention", "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # C signatures, (argtypes, restype) per exported symbol
 SIGNATURES = {
     "coded_matmul": {
@@ -45,7 +46,24 @@ SIGNATURES = {
         "poly_encode_bf16": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL,
                               _LL, _LL, _P], _I),
     },
+    # q, k, v, o; B, H, Hkv, Lq, Lkv, D, causal, window, q_offset; scale;
+    # (batch, head, position) strides of q, k, v, o; stream
+    "flash_attention": {
+        name: ([_P] * 4 + [_I] * 9 + [_F] + [_LL] * 12 + [_P], _I)
+        for name in ("flash_attention_f32", "flash_attention_bf16")
+    },
+    # x, dt, A, B, C, D, y, h_final; Bt, L, Dm, S; (batch, time) strides of
+    # x, dt, B, C; stream
+    "ssm_scan": {
+        name: ([_P] * 8 + [_I] * 4 + [_LL] * 8 + [_P], _I)
+        for name in ("ssm_scan_f32", "ssm_scan_bf16")
+    },
 }
+
+# what a C entry returns, before launching, for arguments that none of its
+# kernel's instances takes (a head dim, a query group, a state size); the
+# sources are the only place that knows their tiling
+UNSUPPORTED = -1
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -139,7 +157,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a C entry reported a CUDA error for its launch."""
+    """Raise if a C entry reported an error for its launch: ``ValueError``
+    for :data:`UNSUPPORTED`, ``RuntimeError`` for a CUDA error."""
+    if rc == UNSUPPORTED:
+        raise ValueError(f"{what}: no instance of the kernel takes these "
+                         "arguments (its source note lists what it supports)")
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

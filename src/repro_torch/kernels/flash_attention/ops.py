@@ -1,0 +1,86 @@
+"""Flash attention: the CUDA kernel and its wrapper.
+
+Counterpart of the reference's ``kernels/flash_attention/ops.py``, whose
+TPU kernel is ``flash_attention_pallas`` (``src/repro/kernels/
+flash_attention/kernel.py``).  The kernel (``csrc/flash_attention.cu``)
+runs one thread block per (batch, query tile, KV head) over the whole query
+group, so every K/V tile is read once per group; its KV loop covers only
+the keys the causal mask and the window leave.  Its source note gives the
+bound on the card and the design.
+
+A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
+the kernel or raises — there is no fallback.  :func:`flash_attention`
+counts its launches in ``flash_attention.launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .._build import check, load
+from .ref import attention_ref
+
+__all__ = ["flash_attention"]
+
+_KERNEL_DTYPES = {torch.float32: "flash_attention_f32",
+                  torch.bfloat16: "flash_attention_bf16"}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax GQA attention.  q (B, H, Lq, d); k, v (B, Hkv, Lkv, d)
+    → (B, H, Lq, d) in q's dtype.
+
+    Query i sits at absolute position ``q_offset + i``; ``window`` > 0
+    keeps keys with ``qpos - kpos < window`` (``None`` or 0: no window).
+    On the card q, k and v may be any strided views whose last dim is
+    contiguous (the model's ``(B, L, H, d)`` → ``(B, H, L, d)`` views go in
+    as they are); the output takes q's layout.
+    """
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"need q (B, H, Lq, d) and k, v (B, Hkv, Lkv, d); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Lq, d = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch or head dim")
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"H={H} not a multiple of Hkv={Hkv}")
+    window = int(window or 0)
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"window {window} and q_offset {q_offset} must be "
+                         ">= 0")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window or None,
+                             q_offset=q_offset)
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"the flash_attention kernel takes float32 or "
+                        f"bfloat16 q, k, v of one dtype; got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    # the head dims, query groups and grid sizes the kernel takes are known
+    # to its launcher alone, which raises through ``check``
+    # the kernel reads rows along the contiguous last dim; any other layout
+    # is copied once here
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty_like(q)            # q's layout, last dim contiguous
+    if out.numel() == 0:
+        return out
+    lib = load("flash_attention")
+    fn = getattr(lib, _KERNEL_DTYPES[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, H, Hkv, Lq, Lkv, d, int(bool(causal)), window, q_offset,
+                1.0 / d ** 0.5, *q.stride()[:3],
+                *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], stream)
+    check(lib, rc, f"flash_attention (B={B}, H={H}, Hkv={Hkv}, head dim "
+                   f"{d})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,85 @@
+"""Selective scan: the CUDA kernel and its wrapper.
+
+Counterpart of the reference's ``kernels/ssm_scan/ops.py``, whose TPU
+kernel is ``ssm_scan_pallas`` (``src/repro/kernels/ssm_scan/kernel.py``).
+The kernel (``csrc/ssm_scan.cu``) runs one thread per (batch, channel,
+state), steps through time with the state in a register, and also returns
+the final state, which the TPU kernel cannot: the prefill hands it to the
+decode recurrence.  Its source note gives the bound on the card and the
+design.
+
+A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
+the kernel or raises — there is no fallback.  :func:`ssm_scan` counts its
+launches in ``ssm_scan.launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .._build import check, load
+from .ref import ssm_scan_ref, ssm_step_ref
+
+__all__ = ["ssm_scan", "ssm_step_ref"]
+
+_KERNEL_DTYPES = {torch.float32: "ssm_scan_f32",
+                  torch.bfloat16: "ssm_scan_bf16"}
+
+
+def ssm_scan(x, dt, A, B, C, D, *, return_final: bool = False):
+    """Mamba-1 selective scan, ``h_t = exp(Δ_t A) h_{t-1} + Δ_t x_t B_t``,
+    ``y_t = Σ_s h_t C_t + D x_t``, from ``h_0 = 0``.
+
+    x/dt (Bt, L, Dm), A (Dm, S) float32, B/C (Bt, L, S), D (Dm,) float32 →
+    y (Bt, L, Dm) in x's dtype; with ``return_final`` also the final state
+    h (Bt, Dm, S) in float32.  On the card x, dt, B and C are float32 or
+    bfloat16 of one dtype, with any batch and time strides and a contiguous
+    last dim (B and C are column slices of the ``x_proj`` output and go in
+    as they are).
+    """
+    if x.ndim != 3 or dt.shape != x.shape or A.ndim != 2 or B.ndim != 3 \
+            or C.shape != B.shape or D.ndim != 1:
+        raise ValueError(f"need x/dt (Bt, L, Dm), A (Dm, S), B/C (Bt, L, S),"
+                         f" D (Dm,); got {tuple(x.shape)}, {tuple(dt.shape)},"
+                         f" {tuple(A.shape)}, {tuple(B.shape)}, "
+                         f"{tuple(C.shape)}, {tuple(D.shape)}")
+    Bt, L, Dm = x.shape
+    S = A.shape[1]
+    if A.shape[0] != Dm or D.shape[0] != Dm or B.shape != (Bt, L, S):
+        raise ValueError(f"x {tuple(x.shape)}, A {tuple(A.shape)}, "
+                         f"B {tuple(B.shape)}, D {tuple(D.shape)} disagree")
+    if len({t.device for t in (x, dt, A, B, C, D)}) != 1:
+        raise ValueError("ssm_scan operands on more than one device")
+    if x.device.type == "cpu":
+        return ssm_scan_ref(x, dt, A, B, C, D, return_final=return_final)
+    if not (x.dtype == dt.dtype == B.dtype == C.dtype) \
+            or x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"the ssm_scan kernel takes float32 or bfloat16 x, "
+                        f"dt, B, C of one dtype; got {x.dtype}, {dt.dtype}, "
+                        f"{B.dtype}, {C.dtype}")
+    if A.dtype != torch.float32 or D.dtype != torch.float32:
+        raise TypeError(f"the ssm_scan kernel takes float32 A and D; got "
+                        f"{A.dtype} and {D.dtype}")
+    # the kernel reads along the contiguous last dims; anything else is
+    # copied once here.  The state sizes and batches it takes are known to
+    # its launcher alone, which raises through ``check``.
+    x, dt, B, C = (t if t.stride(2) == 1 else t.contiguous()
+                   for t in (x, dt, B, C))
+    A, D = A.contiguous(), D.contiguous()
+    y = torch.empty((Bt, L, Dm), dtype=x.dtype, device=x.device)
+    h = torch.empty((Bt, Dm, S), dtype=torch.float32, device=x.device)
+    if y.numel() or h.numel():
+        lib = load("ssm_scan")
+        fn = getattr(lib, _KERNEL_DTYPES[x.dtype])
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                    C.data_ptr(), D.data_ptr(), y.data_ptr(), h.data_ptr(),
+                    Bt, L, Dm, S, x.stride(0), x.stride(1), dt.stride(0),
+                    dt.stride(1), B.stride(0), B.stride(1), C.stride(0),
+                    C.stride(1), stream)
+        check(lib, rc, f"ssm_scan (Bt={Bt}, state size {S})")
+        ssm_scan.launches += 1
+    return (y, h) if return_final else y
+
+
+ssm_scan.launches = 0

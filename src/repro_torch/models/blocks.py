@@ -1,0 +1,126 @@
+"""Decoder blocks: attention / SSM / hybrid mixers over one layer's weights.
+
+Counterpart of the reference's ``models/blocks.py`` for the dense, ssm and
+hybrid families.  A block is ``x + mixer(norm(x))`` then ``x +
+ffn(norm(x))``; the mixer is GQA attention (dense), Mamba (ssm), or both in
+parallel (hybrid — hymba's parallel attn+mamba heads).  The MoE and
+coded-FFN branches of the reference's ``_ffn`` belong to later slices
+(ROADMAP A12, A13).  ``p`` is one layer of :class:`repro_torch.models.lm.
+LM` (``p.attn["wq"]``, ``p.ssm["A_log"]``, ``p.mlp["w_up"]``, ...).
+"""
+from __future__ import annotations
+
+import torch
+
+from .attention import attention, decode_attention
+from .layers import gated_mlp, rms_norm, rope
+from .ssm import mamba_block, mamba_step
+
+__all__ = ["block_forward", "block_decode_step"]
+
+
+def _qkv(p, x, cfg, positions):
+    B, L, _ = x.shape
+    hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, L, H, hd)
+    k = k.reshape(B, L, Hkv, hd)
+    v = v.reshape(B, L, Hkv, hd)
+    if cfg.pos_embed == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    # (B, heads, L, hd) views: the flash kernel takes their strides
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _attn_forward(p, x, cfg, positions, window: int, use_kernels: bool):
+    """Full-sequence attention sublayer.  Returns (out, (k, v))."""
+    B, L, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    out = attention(q, k, v, causal=True, window=window,
+                    use_kernels=use_kernels)
+    out = out.transpose(1, 2).reshape(B, L, -1)
+    return out @ p["wo"], (k, v)
+
+
+def _ffn(p, x, cfg):
+    if cfg.d_ff:
+        return gated_mlp(x, p.mlp, cfg.mlp_act)
+    return torch.zeros_like(x)
+
+
+def block_forward(p, x: torch.Tensor, cfg, positions, window: int, *,
+                  return_state: bool = False, use_kernels: bool = True):
+    """One decoder block over a full sequence.
+
+    ``window``: the layer's sliding window as a Python int (0: full).
+    Returns ``(x', kv or None, ssm_state or None)`` — kv = (k, v) for
+    caching; ssm_state = (conv_tail, h_final) when ``return_state``.
+    """
+    h = rms_norm(x, p.mixer_norm, cfg.norm_eps)
+    kv = ssm_state = None
+
+    def run_ssm(h):
+        if return_state:
+            return mamba_block(p.ssm, h, cfg, return_state=True,
+                               use_kernels=use_kernels)
+        return mamba_block(p.ssm, h, cfg, use_kernels=use_kernels), None
+
+    if cfg.family == "hybrid":
+        attn_out, kv = _attn_forward(p.attn, h, cfg, positions, window,
+                                     use_kernels)
+        ssm_out, ssm_state = run_ssm(h)
+        x = x + 0.5 * (attn_out + ssm_out)        # parallel heads, mean-fused
+    elif cfg.has_ssm:
+        ssm_out, ssm_state = run_ssm(h)
+        x = x + ssm_out
+    else:
+        attn_out, kv = _attn_forward(p.attn, h, cfg, positions, window,
+                                     use_kernels)
+        x = x + attn_out
+    x = x + _ffn(p, rms_norm(x, p.ffn_norm, cfg.norm_eps), cfg)
+    return x, kv, ssm_state
+
+
+def block_decode_step(p, x: torch.Tensor, cfg, pos: int, window: int,
+                      kv_cache=None, ssm_state=None, cache_pos=None,
+                      ring: bool = False):
+    """One decoder block for one token.  x (B, 1, d).
+
+    ``kv_cache``: (k (B,Hkv,S,hd), v), written IN PLACE at ``cache_pos``
+    (defaults to ``pos``; differs for ring-buffer window caches).
+    ``ssm_state``: (conv (B,c-1,di), h (B,di,s)).
+    Returns (x', kv_cache, ssm_state').
+    """
+    B = x.shape[0]
+    h = rms_norm(x, p.mixer_norm, cfg.norm_eps)
+    cpos = pos if cache_pos is None else cache_pos
+
+    def attend(h):
+        positions = torch.full((B, 1), pos, dtype=torch.long,
+                               device=x.device)
+        q, k, v = _qkv(p.attn, h, cfg, positions)
+        kc, vc = kv_cache
+        kc[:, :, cpos] = k[:, :, 0]
+        vc[:, :, cpos] = v[:, :, 0]
+        out = decode_attention(q, kc, vc, pos, window=window, ring=ring)
+        return out.transpose(1, 2).reshape(B, 1, -1) @ p.attn["wo"]
+
+    new_ssm = ssm_state
+    if cfg.family == "hybrid":
+        attn_out = attend(h)
+        y, conv, hh = mamba_step(p.ssm, h[:, 0], ssm_state[0], ssm_state[1],
+                                 cfg)
+        x = x + 0.5 * (attn_out + y[:, None])
+        new_ssm = (conv, hh)
+    elif cfg.has_ssm:
+        y, conv, hh = mamba_step(p.ssm, h[:, 0], ssm_state[0], ssm_state[1],
+                                 cfg)
+        x = x + y[:, None]
+        new_ssm = (conv, hh)
+    else:
+        x = x + attend(h)
+    x = x + _ffn(p, rms_norm(x, p.ffn_norm, cfg.norm_eps), cfg)
+    return x, kv_cache, new_ssm

@@ -1,0 +1,297 @@
+"""Decoder-only LM assembled from an ArchConfig: the serving path.
+
+Counterpart of the reference's ``models/lm.py`` for the dense, ssm and
+hybrid families (:func:`repro_torch.configs.check_family` raises for the
+others).  The parameters live in an :class:`LM` module whose
+``state_dict`` keys follow the reference's tree (``embed``,
+``layers.{i}.attn.wq``, ``layers.{i}.ssm.A_log``, ``final_norm``,
+``lm_head``, ...), one submodule per layer in a ``ModuleList`` instead of a
+stacked layer axis.  The functions mirror the reference's:
+``embed_tokens``, ``forward_hidden``, ``compute_logits``,
+``init_decode_state``, ``prefill`` and ``decode_step``; ``lm_loss`` belongs
+to training (ROADMAP A13).
+
+The prefill runs each layer's attention in the flash kernel and its Mamba
+half in the scan kernel (``use_kernels=False`` runs their plain versions
+instead, for comparisons).  The decode state keeps the reference's stacked
+per-layer layout; :func:`decode_step` writes the KV caches in place and
+returns the state with the next position.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+from torch import nn
+
+from ..configs import check_family
+from ..device import resolve_device
+from .blocks import block_decode_step, block_forward
+from .layers import rms_norm, sinusoidal_positions
+
+__all__ = ["LM", "DecodeState", "init_params", "layer_windows",
+           "embed_tokens", "forward_hidden", "compute_logits",
+           "init_decode_state", "prefill", "decode_step"]
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class _Layer(nn.Module):
+    """One decoder layer's weights, under the reference's names."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+
+        def P(*shape, dt=dtype):
+            return _param(shape, dt, device)
+
+        self.mixer_norm = P(d)
+        if cfg.has_attention:
+            hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+            attn = {"wq": P(d, H * hd), "wk": P(d, Hkv * hd),
+                    "wv": P(d, Hkv * hd), "wo": P(H * hd, d)}
+            if cfg.qkv_bias:
+                attn.update(bq=P(H * hd), bk=P(Hkv * hd), bv=P(Hkv * hd))
+            self.attn = nn.ParameterDict(attn)
+        if cfg.has_ssm:
+            di, s = cfg.resolved_d_inner, cfg.ssm_state
+            r, c = cfg.resolved_dt_rank, cfg.ssm_conv
+            self.ssm = nn.ParameterDict({
+                "in_proj": P(d, 2 * di), "conv_w": P(c, di),
+                "conv_b": P(di), "x_proj": P(di, r + 2 * s),
+                "dt_proj": P(r, di), "dt_bias": P(di),
+                "A_log": P(di, s, dt=torch.float32),
+                "D": P(di, dt=torch.float32), "out_proj": P(di, d)})
+        self.ffn_norm = P(d)
+        if cfg.d_ff:
+            mlp = {"w_up": P(d, cfg.d_ff), "w_down": P(cfg.d_ff, d)}
+            if cfg.mlp_act != "gelu":
+                mlp["w_gate"] = P(d, cfg.d_ff)
+            self.mlp = nn.ParameterDict(mlp)
+
+
+class LM(nn.Module):
+    """The LM's parameters (uninitialised; see :func:`init_params` and
+    :func:`repro_torch.convert.lm_params_from_reference`)."""
+
+    def __init__(self, cfg, *, dtype: torch.dtype, device):
+        super().__init__()
+        check_family(cfg)
+        self.cfg = cfg
+        d, Vp = cfg.d_model, cfg.padded_vocab()
+        self.embed = _param((Vp, d), dtype, device)
+        self.layers = nn.ModuleList(_Layer(cfg, dtype, device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = _param((d,), dtype, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((d, Vp), dtype, device)
+
+
+@torch.no_grad()
+def init_params(cfg, *, device=None, dtype: torch.dtype | None = None,
+                generator: torch.Generator | None = None) -> LM:
+    """Random weights with the reference's distributions (``models/
+    layers.py`` ``init_dense``, ``models/ssm.py`` ``init_mamba_params``):
+    scaled normals drawn in float32 and cast to ``dtype`` (the config's by
+    default), S4D-real ``A_log`` and ``D`` in float32.
+
+    ``device=None`` means the card (raises without one).  Draws come from
+    ``generator`` (a ``torch.Generator`` on ``device``; seeded 0 when not
+    given), so one seed gives one model; they are not the reference's
+    numbers (its weights cross over with ``lm_params_from_reference``).
+    """
+    dev = resolve_device(device)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    gen = generator or torch.Generator(device=dev).manual_seed(0)
+    model = LM(cfg, dtype=dtype, device=dev)
+
+    def normal(t: torch.Tensor, scale: float) -> None:
+        t.copy_(scale * torch.randn(t.shape, generator=gen, device=dev))
+
+    def dense(t: torch.Tensor) -> None:
+        normal(t, math.sqrt(2.0 / (t.shape[0] + t.shape[1])))
+
+    normal(model.embed, cfg.d_model ** -0.5)
+    for layer in model.layers:
+        layer.mixer_norm.fill_(1.0)
+        layer.ffn_norm.fill_(1.0)
+        if cfg.has_attention:
+            for w in layer.attn.values():
+                if w.ndim == 2:
+                    dense(w)
+                else:
+                    w.zero_()                                 # qkv biases
+        if cfg.has_ssm:
+            p, s = layer.ssm, cfg.ssm_state
+            dense(p["in_proj"])
+            normal(p["conv_w"], 1.0 / cfg.ssm_conv)
+            p["conv_b"].zero_()
+            dense(p["x_proj"])
+            dense(p["dt_proj"])
+            p["dt_bias"].fill_(-4.6)                         # softplus⁻¹(0.01)
+            p["A_log"].copy_(torch.log(torch.arange(
+                1, s + 1, dtype=torch.float32, device=dev)).expand_as(
+                    p["A_log"]))
+            p["D"].fill_(1.0)
+            dense(p["out_proj"])
+        if cfg.d_ff:
+            for w in layer.mlp.values():
+                dense(w)
+    model.final_norm.fill_(1.0)
+    if not cfg.tie_embeddings:
+        dense(model.lm_head)
+    return model
+
+
+def layer_windows(cfg) -> list[int]:
+    """Per-layer sliding-window sizes as Python ints (0 = full attention)."""
+    if not cfg.has_attention:
+        return [0] * cfg.n_layers
+    w = [cfg.sliding_window] * cfg.n_layers
+    if cfg.sliding_window and cfg.global_attn_layers:
+        for i in cfg.global_attn_layers:
+            if i < cfg.n_layers:
+                w[i] = 0
+    return w
+
+
+def embed_tokens(params: LM, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """tokens (B, L) integer → (B, L, d)."""
+    x = params.embed[tokens]
+    if cfg.pos_embed == "sinusoidal":
+        pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+    return x
+
+
+def forward_hidden(params: LM, x: torch.Tensor, cfg, positions, *,
+                   use_kernels: bool = True) -> torch.Tensor:
+    """Run all decoder blocks and the final norm.  x (B, L, d) → (B, L, d).
+    (The reference also returns the MoE auxiliary loss, which is zero for
+    the families ported here.)"""
+    check_family(cfg)
+    for p_l, win in zip(params.layers, layer_windows(cfg)):
+        x, _, _ = block_forward(p_l, x, cfg, positions, win,
+                                use_kernels=use_kernels)
+    return rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+def compute_logits(params: LM, hidden: torch.Tensor, cfg) -> torch.Tensor:
+    """hidden (..., d) → logits over the (padded) vocab."""
+    if cfg.tie_embeddings:
+        return hidden @ params.embed.T
+    return hidden @ params.lm_head
+
+
+class DecodeState(NamedTuple):
+    """Stacked per-layer decode state + current position (a Python int)."""
+    kv_k: Any            # (L, B, Hkv, S, hd) or () for attention-free
+    kv_v: Any
+    conv: Any            # (L, B, c-1, di) or ()
+    ssm_h: Any           # (L, B, di, s) float32 or ()
+    pos: int
+
+
+def init_decode_state(cfg, batch: int, max_seq: int, *,
+                      dtype: torch.dtype | None = None,
+                      device=None) -> DecodeState:
+    dev = resolve_device(device)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    L = cfg.n_layers
+    kv_k = kv_v = conv = ssm_h = ()
+    if cfg.has_attention:
+        hd, Hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+        S = max_seq
+        if cfg.sliding_window and not cfg.global_attn_layers:
+            S = min(max_seq, cfg.sliding_window)  # window-only: ring buffer
+        kv_k = torch.zeros((L, batch, Hkv, S, hd), dtype=dtype, device=dev)
+        kv_v = torch.zeros((L, batch, Hkv, S, hd), dtype=dtype, device=dev)
+    if cfg.has_ssm:
+        di = cfg.resolved_d_inner
+        conv = torch.zeros((L, batch, cfg.ssm_conv - 1, di), dtype=dtype,
+                           device=dev)
+        ssm_h = torch.zeros((L, batch, di, cfg.ssm_state),
+                            dtype=torch.float32, device=dev)
+    return DecodeState(kv_k, kv_v, conv, ssm_h, 0)
+
+
+def prefill(params: LM, tokens: torch.Tensor, cfg,
+            max_seq: int | None = None, *, use_kernels: bool = True):
+    """Process a full prompt, build the decode state, return last logits.
+
+    tokens (B, L) on the parameters' device → (logits (B, 1, V),
+    :class:`DecodeState` at position L).  The KV cache is built at
+    ``max_seq`` (≥ L) slots, or as a ring buffer of the window for
+    window-only archs; the SSM state comes from the scan kernel.
+    """
+    check_family(cfg)
+    B, L = tokens.shape[:2]
+    S = max_seq or L
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(L, device=x.device)[None].expand(B, L)
+    state = init_decode_state(cfg, B, S, dtype=x.dtype, device=x.device)
+    for i, (p_l, win) in enumerate(zip(params.layers, layer_windows(cfg))):
+        x, kv, ssm = block_forward(p_l, x, cfg, positions, win,
+                                   return_state=cfg.has_ssm,
+                                   use_kernels=use_kernels)
+        if cfg.has_attention:
+            Scap = state.kv_k.shape[3]
+            for cache, t in zip((state.kv_k, state.kv_v), kv):
+                if Scap >= L:
+                    cache[i, :, :, :L] = t
+                else:         # ring cache: slot = absolute pos mod Scap
+                    cache[i] = torch.roll(t[:, :, -Scap:], L % Scap, dims=2)
+        if cfg.has_ssm:
+            state.conv[i] = ssm[0]
+            state.ssm_h[i] = ssm[1]
+    h = rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = compute_logits(params, h[:, -1:], cfg)
+    return logits, state._replace(pos=L)
+
+
+def decode_step(params: LM, tokens: torch.Tensor, state: DecodeState, cfg):
+    """One new token with existing state.  tokens (B, 1).
+
+    Returns (logits (B, 1, V), new state).  The KV caches are updated in
+    place.  For window-only archs the write position wraps (ring buffer);
+    masking uses absolute positions, so correctness holds as long as the
+    cache holds at least the window.
+    """
+    check_family(cfg)
+    x = embed_tokens(params, tokens, cfg)
+    pos = int(state.pos)
+    if cfg.pos_embed == "sinusoidal":
+        # embed_tokens added position 0; replace with the true position
+        zero = torch.zeros((1, 1), dtype=torch.long, device=x.device)
+        x = x - sinusoidal_positions(zero, cfg.d_model).to(x.dtype)
+        x = x + sinusoidal_positions(zero + pos, cfg.d_model).to(x.dtype)
+    has_kv, has_ssm = cfg.has_attention, cfg.has_ssm
+    ring = bool(has_kv and cfg.sliding_window and not cfg.global_attn_layers
+                and state.kv_k.shape[3] <= cfg.sliding_window)
+    if has_kv and not ring and pos >= state.kv_k.shape[3]:
+        raise ValueError(f"position {pos}: the KV cache holds "
+                         f"{state.kv_k.shape[3]} (prefill with a larger "
+                         "max_seq)")
+    cache_pos = pos % state.kv_k.shape[3] if ring else pos
+    convs, hs = [], []
+    for i, (p_l, win) in enumerate(zip(params.layers, layer_windows(cfg))):
+        kv = (state.kv_k[i], state.kv_v[i]) if has_kv else None
+        ssm = (state.conv[i], state.ssm_h[i]) if has_ssm else None
+        x, _, ssm = block_decode_step(p_l, x, cfg, pos, win, kv_cache=kv,
+                                      ssm_state=ssm, cache_pos=cache_pos,
+                                      ring=ring)
+        if has_ssm:
+            convs.append(ssm[0])
+            hs.append(ssm[1])
+    h = rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = compute_logits(params, h, cfg)
+    new_state = DecodeState(
+        state.kv_k, state.kv_v,
+        torch.stack(convs) if has_ssm else (),
+        torch.stack(hs) if has_ssm else (), pos + 1)
+    return logits, new_state

@@ -14,7 +14,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.core", "repro_torch.kernels",
            "repro_torch.serving", "repro_torch.launch.serve",
-           "repro_torch.convert", "repro_torch.cluster"]
+           "repro_torch.convert", "repro_torch.cluster",
+           "repro_torch.models", "repro_torch.runtime.steps",
+           "repro_torch.configs"]
 
 
 def test_port_import_loads_no_jax_and_no_reference():
@@ -30,6 +32,7 @@ def test_port_import_loads_no_jax_and_no_reference():
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
     assert "repro_torch.serving.master" in mods
+    assert "repro_torch.models.lm" in mods
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(PORT).as_posix()

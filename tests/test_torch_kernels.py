@@ -1,12 +1,13 @@
 """Port kernels: plain versions against the reference Pallas kernels and jnp
-oracles, and the CUDA kernels against their plain versions.
+oracles.
 
 Inputs are drawn with numpy from a seed and handed to both packages (bf16
 inputs are rounded once, by jax, and passed on exactly).  The reference
 kernels run as the reference's own tests run them on the CPU: Pallas in
 ``interpret=True``.  Tolerances are the reference's ``_tol`` (float32 2e-4,
 bfloat16 5e-2, atol scaled by the contraction length), over the shape
-sweeps of ``tests/test_kernels.py`` including the non-divisible shapes.
+sweeps of ``tests/test_kernels.py`` including the non-divisible shapes
+(flash attention: 2e-4 / 5e-2 flat; selective scan: 1e-4).
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_gpu.py``.
@@ -22,13 +23,20 @@ from repro.core import x_equal as ref_x_equal
 from repro.kernels.coded_matmul.kernel import coded_matmul_pallas
 from repro.kernels.coded_matmul.ref import (coded_matmul_complex_ref,
                                             coded_matmul_ref)
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.poly_encode.kernel import poly_encode_pallas
 from repro.kernels.poly_encode.ref import poly_encode_ref
+from repro.kernels.ssm_scan.kernel import ssm_scan_pallas
+from repro.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.core import MatDotCode, split_contraction, x_equal
-from repro_torch.kernels import (coded_matmul, poly_encode, worker_products,
+from repro_torch.kernels import (_build, coded_matmul, flash_attention,
+                                 poly_encode, ssm_scan, worker_products,
                                  worker_products_complex)
 from repro_torch.kernels.coded_matmul.ref import \
     coded_matmul_ref as plain_coded_matmul
+from repro_torch.kernels.flash_attention.ref import \
+    attention_ref as plain_attention
 from repro_torch.kernels.poly_encode.ref import \
     poly_encode_ref as plain_poly_encode
 
@@ -237,3 +245,178 @@ def test_poly_encode_rejects_bad_arguments(bad):
             poly_encode(G, torch.zeros(5, 6))
         else:
             poly_encode(G, X, parts=3)
+
+
+# ----------------------------------------------------------- flash attention
+
+FLASH_SHAPES = [(1, 2, 2, 64, 64, 16),          # MHA square
+                (2, 4, 2, 64, 64, 32),          # GQA
+                (1, 8, 1, 32, 32, 16),          # MQA
+                (1, 2, 1, 16, 80, 16),          # decode suffix (Lq < Lkv)
+                (1, 2, 2, 50, 70, 16)]          # non-divisible remainders
+
+
+def _qkv_inputs(B, H, Hkv, Lq, Lkv, d, name, seed):
+    rng = np.random.default_rng(seed)
+    return (_pair(rng.standard_normal((B, H, Lq, d)), name),
+            _pair(rng.standard_normal((B, Hkv, Lkv, d)), name),
+            _pair(rng.standard_normal((B, Hkv, Lkv, d)), name))
+
+
+@pytest.mark.parametrize("B,H,Hkv,Lq,Lkv,d", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_plain_matches_pallas(B, H, Hkv, Lq, Lkv, d, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv_inputs(B, H, Hkv, Lq, Lkv, d, dtype, 7)
+    off = Lkv - Lq
+    want = flash_attention_pallas(jq, jk, jv, q_offset=off, bq=16, bkv=16,
+                                  interpret=True)
+    got = flash_attention(tq, tk, tv, q_offset=off)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (B, H, Lq, d)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("B,H,Hkv,Lq,Lkv,d", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_plain_matches_jnp_ref(B, H, Hkv, Lq, Lkv, d, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv_inputs(B, H, Hkv, Lq, Lkv, d, dtype, 8)
+    off = Lkv - Lq
+    np.testing.assert_allclose(
+        _f32(plain_attention(tq, tk, tv, q_offset=off)),
+        _f32(attention_ref(jq, jk, jv, q_offset=off)), rtol=_tol(dtype),
+        atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("window", [8, 24, 64])
+def test_flash_plain_sliding_window_matches_pallas(window):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv_inputs(1, 2, 2, 96, 96, 16,
+                                               "float32", 9)
+    want = flash_attention_pallas(jq, jk, jv, window=window, bq=16, bkv=16,
+                                  interpret=True)
+    got = flash_attention(tq, tk, tv, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(_f32(got), _f32(attention_ref(
+        jq, jk, jv, window=window)), rtol=2e-4, atol=2e-4)
+
+
+def test_flash_plain_noncausal_matches_pallas():
+    (jq, tq), (jk, tk), (jv, tv) = _qkv_inputs(1, 2, 2, 48, 48, 16,
+                                               "float32", 10)
+    want = flash_attention_pallas(jq, jk, jv, causal=False, bq=16, bkv=16,
+                                  interpret=True)
+    got = flash_attention(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-4, atol=2e-4)
+
+
+def test_flash_window_zero_is_full_attention_and_views_pass():
+    """``window`` 0 and None both mean full attention (the model's per-layer
+    convention), and the model's (B, L, H, d) → (B, H, L, d) views give the
+    same answer as contiguous copies."""
+    (_, tq), (_, tk), (_, tv) = _qkv_inputs(2, 4, 2, 20, 20, 16, "float32",
+                                            11)
+    full = flash_attention(tq, tk, tv)
+    torch.testing.assert_close(flash_attention(tq, tk, tv, window=0), full)
+    qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (tq, tk, tv))
+    assert not qv.is_contiguous()
+    torch.testing.assert_close(flash_attention(qv, kv, vv), full)
+    # a fully masked row (query before every key) gives zeros, not NaN
+    out = flash_attention(tq[:, :, :1], tk, tv, window=1, q_offset=30)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("bad", ["heads", "dim", "window", "offset", "ndim"])
+def test_flash_rejects_bad_arguments(bad):
+    q, k = torch.zeros(1, 4, 8, 16), torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError):
+        if bad == "heads":
+            flash_attention(q, torch.zeros(1, 3, 8, 16),
+                            torch.zeros(1, 3, 8, 16))
+        elif bad == "dim":
+            flash_attention(q, torch.zeros(1, 2, 8, 32),
+                            torch.zeros(1, 2, 8, 32))
+        elif bad == "window":
+            flash_attention(q, k, k, window=-1)
+        elif bad == "offset":
+            flash_attention(q, k, k, q_offset=-2)
+        else:
+            flash_attention(q[0], k, k)
+
+
+# ----------------------------------------------------------------- ssm scan
+
+SCAN_SHAPES = [(1, 32, 16, 4), (2, 48, 24, 16), (2, 100, 40, 8),
+               (1, 33, 17, 16)]
+
+
+def _scan_inputs(Bt, L, Dm, S, seed):
+    """x, dt, A, B, C, D as in the reference's test, each as (jax, torch)."""
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((Bt, L, Dm)),
+            rng.uniform(0.01, 0.2, (Bt, L, Dm)),
+            -rng.uniform(0.1, 1.0, (Dm, S)),
+            rng.standard_normal((Bt, L, S)),
+            rng.standard_normal((Bt, L, S)),
+            rng.standard_normal((Dm,)))
+    return [_pair(a, "float32") for a in arrs]
+
+
+@pytest.mark.parametrize("Bt,L,Dm,S", SCAN_SHAPES)
+def test_ssm_scan_plain_matches_pallas(Bt, L, Dm, S):
+    pairs = _scan_inputs(Bt, L, Dm, S, 12)
+    want = ssm_scan_pallas(*(j for j, _ in pairs), bd=8, bl=16,
+                           interpret=True)
+    got = ssm_scan(*(t for _, t in pairs))
+    assert got.dtype == torch.float32 and got.shape == (Bt, L, Dm)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("Bt,L,Dm,S", SCAN_SHAPES)
+def test_ssm_scan_plain_final_state_matches_jnp_ref(Bt, L, Dm, S):
+    pairs = _scan_inputs(Bt, L, Dm, S, 13)
+    want_y, want_h = ssm_scan_ref(*(j for j, _ in pairs), return_final=True)
+    y, h = ssm_scan(*(t for _, t in pairs), return_final=True)
+    assert h.dtype == torch.float32 and h.shape == (Bt, Dm, S)
+    np.testing.assert_allclose(_f32(y), _f32(want_y), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_f32(h), _f32(want_h), rtol=1e-4, atol=1e-4)
+
+
+def test_ssm_scan_takes_column_views_of_x_proj():
+    """B and C as column slices of one (Bt, L, r + 2S) projection (the
+    model's layout) give the same scan as contiguous copies."""
+    x, dt, A, _, _, D = (t for _, t in _scan_inputs(2, 20, 12, 4, 14))
+    xp = torch.randn(2, 20, 3 + 8, generator=torch.Generator().manual_seed(0))
+    B, C = xp[..., 3:7], xp[..., 7:]
+    assert B.stride(1) == 11 and not B.is_contiguous()
+    y, h = ssm_scan(x, dt, A, B, C, D, return_final=True)
+    y2, h2 = ssm_scan(x, dt, A, B.contiguous(), C.contiguous(), D,
+                      return_final=True)
+    torch.testing.assert_close(y, y2)
+    torch.testing.assert_close(h, h2)
+
+
+@pytest.mark.parametrize("bad", ["A", "B", "D", "ndim"])
+def test_ssm_scan_rejects_bad_shapes(bad):
+    x = torch.zeros(2, 5, 6)
+    A, B, D = torch.zeros(6, 4), torch.zeros(2, 5, 4), torch.zeros(6)
+    with pytest.raises(ValueError):
+        if bad == "A":
+            ssm_scan(x, x, torch.zeros(5, 4), B, B, D)
+        elif bad == "B":
+            ssm_scan(x, x, A, torch.zeros(2, 5, 3), torch.zeros(2, 5, 3), D)
+        elif bad == "D":
+            ssm_scan(x, x, A, B, B, torch.zeros(5))
+        else:
+            ssm_scan(x[0], x[0], A, B, B, D)
+
+
+@pytest.mark.parametrize("rc,error", [(_build.UNSUPPORTED, ValueError),
+                                      (0, None)])
+def test_launcher_codes_map_to_exceptions(rc, error):
+    """A C entry's UNSUPPORTED (arguments no kernel instance takes: the
+    sources alone know their tiling) raises ValueError; 0 passes."""
+    if error is None:
+        _build.check(None, rc, "flash_attention")
+    else:
+        with pytest.raises(error, match="flash_attention .head dim 48"):
+            _build.check(None, rc, "flash_attention (head dim 48)")
