@@ -10,29 +10,56 @@
 // Bound on an H100: at hymba-1.5b's prefill (d=64, 25 query heads over 5 KV
 // heads, L=8192) a query-key pair costs 4*d operations (QK^T and PV) against
 // a few bytes of q, k, v and output per pair, so the kernel is bound by
-// operations.  This first version runs on the CUDA cores in float32
-// (bf16 inputs are widened on load), not on the tensor cores, so its
-// ceiling is the FP32 vector rate; chip_smoke.py states the bf16
-// tensor-core bound beside its time.
+// operations, at the bf16 tensor-core rate.
 //
-// Design (simple first): one block per (query tile, KV head, batch).  The
-// block holds the whole query group of that KV head (group heads x bq
-// queries, bq = 256 / (lanes x group)), so each K/V tile is read from
-// device memory once per group: the reuse the Pallas index map gets from
-// h // group.  K and V tiles of 4096 floats each sit in shared memory;
-// every thread owns one query row's slice of 32 dims (lanes = d/32
-// threads per row, dot products summed with warp shuffles), with q, m, l
-// and the accumulator in registers.  The KV loop runs only from the first
-// key the window leaves to the last key the causal mask leaves for the
-// tile's queries, so a windowed layer does O(L*W) work, not O(L^2); inside
-// that range a chunk of 16 keys that no row of a warp may see is skipped
-// by the whole warp.  The masks are the Pallas kernel's, from absolute
-// positions (query i at q_offset + i): kpos < Lkv, causal kpos <= qpos,
-// window qpos - kpos < W.  Key rows past Lkv are loaded as zeros (0*NaN
-// cannot reach the accumulator), -inf is handled as the Pallas kernel's
-// safe_m / corr do, and a row with l == 0 divides by 1 and gives 0.
+// Two kernels, chosen by dtype (an explicit dispatch in the C entries):
 //
-// Strides: q, k, v and o are (B, heads, L, d) views with any batch, head
+// bf16 -> flash_mma_kernel, FlashAttention-2 on the tensor cores.  A block
+// of 4 warps owns BQ query rows of one query head; each warp owns 16*MT
+// rows (MT = 2 for d <= 64, else 1).  QK^T and PV are
+// mma.sync.m16n8k16 bf16 products with float32 accumulators, fed by
+// ldmatrix from shared memory (.trans for V, whose rows are keys).  Q is
+// copied to shared memory once and, for d <= 128, held in registers as
+// mma fragments; at d = 256 it is re-read from shared memory each tile, to
+// keep the 128 float32 accumulators of a row slice in registers.  K and V
+// tiles of BKV keys (64; 32 at d = 256) arrive by cp.async 16-byte copies
+// into a ring of two stages, so the next tile loads while this one is
+// multiplied.  Rows are padded by 16 bytes in shared memory so that the 8
+// rows of an ldmatrix hit distinct banks.  Scores stay in registers: the
+// row max and sum are reduced over the 4 lanes of a quad, P is rescaled in
+// the exp2 domain (scale * log2 e folded in) and rounded to bf16 for the PV
+// product, as SDPA does; m, l and O stay in float32 registers.  GQA reads
+// K/V of head h / group; the heads of a group are neighbouring blocks, so
+// their K/V tiles come from L2.  The grid is (B*H, q tiles) with the q
+// tile on the slow axis, reversed, so the longest causal tiles launch
+// first over all heads.  Per-element masks run only on the tiles of a warp
+// that cross the diagonal, the window's first key or Lkv; a tile no row of
+// a warp may see is skipped by that warp.  cp.async needs 16-byte aligned
+// rows: the entry returns UNSUPPORTED unless every pointer is 16-byte
+// aligned and every batch, head and position stride is a multiple of 8
+// elements (the wrapper copies such an operand once; hymba's
+// (B, L, H, d) -> (B, H, L, d) views, position stride H*d, need no copy).
+//
+// float32 -> flash_simt_kernel, the first design, on the CUDA cores: the
+// tensor cores would round q, k, v to bf16 or TF32, which the float32
+// tolerance of the reference (2e-4) does not admit, and no model path runs
+// float32 attention.  One block per (query tile, KV head, batch) holds the
+// whole query group of that KV head (group heads x bq queries, bq = 256 /
+// (lanes x group)), so each K/V tile is read once per group.  K and V
+// tiles of 4096 floats each sit in shared memory; every thread owns one
+// query row's slice of 32 dims (lanes = d/32 threads per row, dot products
+// summed with warp shuffles), with q, m, l and the accumulator in
+// registers; a chunk of 16 keys that no row of a warp may see is skipped
+// by the whole warp.
+//
+// Both: the KV loop runs only from the first key the window leaves to the
+// last key the causal mask leaves for the tile's queries, so a windowed
+// layer does O(L*W) work, not O(L^2).  The masks are the Pallas kernel's,
+// from absolute positions (query i at q_offset + i): kpos < Lkv, causal
+// kpos <= qpos, window qpos - kpos < W.  Key rows past Lkv are loaded as
+// zeros (0*NaN cannot reach the accumulator), -inf is handled as the
+// Pallas kernel's safe_m / corr do, and a row with l == 0 divides by 1 and
+// gives 0.  q, k, v and o are (B, heads, L, d) views with any batch, head
 // and position strides and a contiguous last dim, so the model's
 // (B, L, H, d) -> (B, H, L, d) views need no copy.  Each C entry returns
 // cudaGetLastError() of its launch.
@@ -44,31 +71,25 @@
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int UNSUPPORTED = -1;     // no instance takes the arguments
 constexpr int MAX_GRID_YZ = 65535;
-constexpr int CHUNK = 16;           // keys per online-softmax update
-constexpr int TILE_FLOATS = 4096;   // one K (or V) tile: 16 KB
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
-}
+// ------------------------------------------------ float32: CUDA cores
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int group,
-                       int bq, int Lq, int Lkv, int causal, int window,
-                       int q_offset, float scale, int64_t sqb, int64_t sqh,
-                       int64_t sql, int64_t skb, int64_t skh, int64_t skl,
-                       int64_t svb, int64_t svh, int64_t svl, int64_t sob,
-                       int64_t soh, int64_t sol) {
+constexpr int SIMT_THREADS = 256;
+constexpr int CHUNK = 16;           // keys per online-softmax update
+constexpr int TILE_FLOATS = 4096;   // one K (or V) tile: 16 KB
+
+template <int D>
+__global__ void __launch_bounds__(SIMT_THREADS)
+flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int group,
+                  int bq, int Lq, int Lkv, int causal, int window,
+                  int q_offset, float scale, int64_t sqb, int64_t sqh,
+                  int64_t sql, int64_t skb, int64_t skh, int64_t skl,
+                  int64_t svb, int64_t svh, int64_t svl, int64_t sob,
+                  int64_t soh, int64_t sol) {
     constexpr int DPT = D < 32 ? D : 32;   // dims of a row one thread owns
     constexpr int TPR = D / DPT;           // threads per query row
     constexpr int NV = DPT / 4;            // float4 slices per thread
@@ -99,7 +120,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
             const int dd = 4 * (lane + TPR * c) + e;
             qv[4 * c + e] =
-                live ? to_f32(q[b * sqb + h * sqh + qi * sql + dd]) : 0.f;
+                live ? q[b * sqb + h * sqh + qi * sql + dd] : 0.f;
             acc[4 * c + e] = 0.f;
         }
     }
@@ -112,17 +133,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (causal) kv_hi = min(kv_hi, q_offset + q_hi);
     if (window > 0) kv_lo = max(0, q_offset + q_lo - window + 1);
 
-    const T* kb = k + b * skb + (int64_t)hk * skh;
-    const T* vb = v + b * svb + (int64_t)hk * svh;
+    const float* kb = k + b * skb + (int64_t)hk * skh;
+    const float* vb = v + b * svb + (int64_t)hk * svh;
     for (int kv0 = kv_lo; kv0 <= kv_hi; kv0 += BKV) {
         __syncthreads();                         // previous tile consumed
-        for (int e = tid; e < BKV * D; e += THREADS) {
+        for (int e = tid; e < BKV * D; e += SIMT_THREADS) {
             const int j = e / D, dd = e % D;
             const int kp = kv0 + j;
             float kx = 0.f, vx = 0.f;            // rows past Lkv stay zero
             if (kp < Lkv) {
-                kx = to_f32(kb[(int64_t)kp * skl + dd]);
-                vx = to_f32(vb[(int64_t)kp * svl + dd]);
+                kx = kb[(int64_t)kp * skl + dd];
+                vx = vb[(int64_t)kp * svl + dd];
             }
             Ks[e] = kx;
             Vs[e] = vx;
@@ -201,56 +222,434 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     if (live) {
         const float denom = (l == 0.f) ? 1.f : l;
-        T* orow = o + b * sob + h * soh + (int64_t)qi * sol;
+        float* orow = o + b * sob + h * soh + (int64_t)qi * sol;
 #pragma unroll
         for (int c = 0; c < NV; ++c) {
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                store_f32(orow + 4 * (lane + TPR * c) + e,
-                          acc[4 * c + e] / denom);
+                orow[4 * (lane + TPR * c) + e] = acc[4 * c + e] / denom;
         }
     }
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Hkv, int Lq, int Lkv, int causal, int window,
-             int q_offset, float scale, const long long* st, void* stream) {
+
+template <int D>
+int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
+                int H, int Hkv, int Lq, int Lkv, int causal, int window,
+                int q_offset, float scale, const long long* st,
+                void* stream) {
     constexpr int TPR = D < 32 ? 1 : D / 32;
-    if (Hkv < 1 || H % Hkv || B > MAX_GRID_YZ || Hkv > MAX_GRID_YZ)
-        return UNSUPPORTED;
+    if (B > MAX_GRID_YZ || Hkv > MAX_GRID_YZ) return UNSUPPORTED;
     const int group = H / Hkv;
-    if (group * TPR > THREADS) return UNSUPPORTED;   // a group fills a block
-    const int bq = THREADS / (TPR * group);      // queries per block
+    if (group * TPR > SIMT_THREADS) return UNSUPPORTED;   // group fills a block
+    const int bq = SIMT_THREADS / (TPR * group);          // queries per block
     dim3 grid((Lq + bq - 1) / bq, Hkv, B);
-    flash_attention_kernel<T, D><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), group, bq, Lq, Lkv,
-        causal, window, q_offset, scale, st[0], st[1], st[2], st[3], st[4],
-        st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+    flash_simt_kernel<D>
+        <<<grid, SIMT_THREADS, 0, (cudaStream_t)stream>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), static_cast<float*>(o), group, bq,
+            Lq, Lkv, causal, window, q_offset, scale, st[0], st[1], st[2],
+            st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hkv, int Lq, int Lkv, int D, int causal, int window,
-           int q_offset, float scale, const long long* st, void* stream) {
+// ------------------------------------------------ bf16: tensor cores
+
+using bf16 = __nv_bfloat16;
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct MmaTile {
+    static constexpr int MT = D <= 64 ? 2 : 1;        // m16 tiles per warp
+    static constexpr int BQ = 16 * MT * MMA_WARPS;    // query rows per block
+    static constexpr int BKV = D <= 128 ? 64 : 32;    // keys per tile
+    static constexpr int LD = D + 8;                  // row pitch (elements)
+    static constexpr int STAGES = 2;                  // K/V ring
+    static constexpr bool QREG = D <= 128;            // Q fragments in regs
+    static constexpr int SMEM = (BQ + 2 * STAGES * BKV) * LD * 2;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; bytes == 0 writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {     // 2^x, -inf -> 0
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4*g + t.  A (16x16):
+// a0 (row g, cols 2t, 2t+1), a1 (row g+8), a2 (cols +8), a3 (row g+8,
+// cols +8).  B (16x8): b0 (k 2t, 2t+1; n g), b1 (k +8).  C (16x8): c0, c1
+// (row g, cols 2t, 2t+1), c2, c3 (row g+8).  An ldmatrix.x4 gives matrix
+// i's fragment from the 8 row addresses of lanes 8i..8i+7.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int H,
+                 int group, int Lq, int Lkv, int causal, int window,
+                 int q_offset, float scale_log2, int64_t sqb, int64_t sqh,
+                 int64_t sql, int64_t skb, int64_t skh, int64_t skl,
+                 int64_t svb, int64_t svh, int64_t svl, int64_t sob,
+                 int64_t soh, int64_t sol) {
+    using C = MmaTile<D>;
+    constexpr int MT = C::MT, BQ = C::BQ, BKV = C::BKV, LD = C::LD;
+    constexpr int NT = BKV / 8;          // n8 tiles of scores per m16 tile
+    constexpr int DT = D / 8;            // n8 tiles of the output
+    constexpr int CH = D / 8;            // 16-byte chunks per row
+    extern __shared__ __align__(16) unsigned char smem[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem);            // [BQ][LD]
+    bf16* Ks = Qs + BQ * LD;                             // [STAGES][BKV][LD]
+    bf16* Vs = Ks + C::STAGES * BKV * LD;
+
+    const int h = blockIdx.x % H;
+    const int64_t b = blockIdx.x / H;
+    const int hk = h / group;
+    const int q_lo = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+
+    const bf16* qb = q + b * sqb + h * sqh;
+    const bf16* kb = k + b * skb + hk * skh;
+    const bf16* vb = v + b * svb + hk * svh;
+
+    // the keys any row of this block may see: the causal mask ends them at
+    // the tile's last query, the window starts them W-1 before its first
+    const int q_hi = min(q_lo + BQ, Lq) - 1;
+    int kv_lo = 0, kv_hi = Lkv - 1;
+    if (causal) kv_hi = min(kv_hi, q_offset + q_hi);
+    if (window > 0) kv_lo = max(0, q_offset + q_lo - window + 1);
+    const int n_tiles = kv_hi >= kv_lo ? (kv_hi - kv_lo) / BKV + 1 : 0;
+
+    for (int c = tid; c < BQ * CH; c += MMA_THREADS) {   // rows past Lq: 0
+        const int r = c / CH, cc = c % CH;
+        const bool ok = q_lo + r < Lq;
+        cp_async16(smem_addr(Qs + r * LD + cc * 8),
+                   ok ? qb + (int64_t)(q_lo + r) * sql + cc * 8 : qb,
+                   ok ? 16 : 0);
+    }
+    auto load_kv = [&](int tile, int stage) {            // rows past Lkv: 0
+        const int kv0 = kv_lo + tile * BKV;
+        bf16* kd = Ks + stage * BKV * LD;
+        bf16* vd = Vs + stage * BKV * LD;
+        for (int c = tid; c < BKV * CH; c += MMA_THREADS) {
+            const int r = c / CH, cc = c % CH;
+            const int kp = kv0 + r;
+            const bool ok = kp < Lkv;
+            cp_async16(smem_addr(kd + r * LD + cc * 8),
+                       ok ? kb + (int64_t)kp * skl + cc * 8 : kb,
+                       ok ? 16 : 0);
+            cp_async16(smem_addr(vd + r * LD + cc * 8),
+                       ok ? vb + (int64_t)kp * svl + cc * 8 : vb,
+                       ok ? 16 : 0);
+        }
+    };
+    if (n_tiles > 0) load_kv(0, 0);
+    cp_async_commit();
+
+    // this warp's rows, and their absolute positions
+    const int w_row = warp * 16 * MT;
+    const int wq_lo = q_lo + w_row;
+    const bool warp_live = wq_lo < Lq;
+    const int wpos_lo = q_offset + wq_lo;
+    const int wpos_hi = q_offset + min(wq_lo + 16 * MT, Lq) - 1;
+
+    float acc[MT][DT][4];
+    float m_run[MT][2], l_run[MT][2];        // per row g and g+8; l per lane
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][dt][e] = 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            m_run[mt][r] = -INFINITY;
+            l_run[mt][r] = 0.f;
+        }
+    }
+    uint32_t qf[C::QREG ? MT : 1][C::QREG ? D / 16 : 1][4];
+    // lane's ldmatrix row address within a 16x16 A tile / a B tile pair
+    const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+    const int kb_row = (lane >> 4) * 8 + (lane & 7);
+    const int kb_col = ((lane >> 3) & 1) * 8;
+    const int vb_row = ((lane >> 3) & 1) * 8 + (lane & 7);
+    const int vb_col = (lane >> 4) * 8;
+    const bf16* qw = Qs + (w_row + a_row) * LD + a_col;   // this lane's Q row
+
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) load_kv(it + 1, (it + 1) & 1);
+        cp_async_commit();
+        cp_async_wait<1>();                  // Q and tile it have landed
+        __syncthreads();
+        if constexpr (C::QREG) {
+            if (it == 0) {
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int kc = 0; kc < D / 16; ++kc)
+                        ldmatrix_x4(qf[mt][kc],
+                                    smem_addr(qw + mt * 16 * LD + kc * 16));
+            }
+        }
+        const int kv0 = kv_lo + it * BKV;
+        const bf16* kt = Ks + (it & 1) * BKV * LD;
+        const bf16* vt = Vs + (it & 1) * BKV * LD;
+        const bool skip = !warp_live || (causal && kv0 > wpos_hi) ||
+                          (window > 0 && kv0 + BKV - 1 <= wpos_lo - window);
+        if (!skip) {
+            float s[MT][NT][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
+            // S = Q K^T
+#pragma unroll
+            for (int kc = 0; kc < D / 16; ++kc) {
+                uint32_t qa[MT][4];
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                    if constexpr (C::QREG) {
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) qa[mt][e] = qf[mt][kc][e];
+                    } else {
+                        ldmatrix_x4(qa[mt],
+                                    smem_addr(qw + mt * 16 * LD + kc * 16));
+                    }
+                }
+#pragma unroll
+                for (int np = 0; np < NT / 2; ++np) {
+                    uint32_t kf[4];
+                    ldmatrix_x4(kf, smem_addr(kt + (np * 16 + kb_row) * LD +
+                                              kc * 16 + kb_col));
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt) {
+                        mma_bf16(s[mt][2 * np], qa[mt], kf[0], kf[1]);
+                        mma_bf16(s[mt][2 * np + 1], qa[mt], kf[2], kf[3]);
+                    }
+                }
+            }
+            // masks, only where the tile crosses an edge for this warp
+            const bool edge = kv0 + BKV > Lkv ||
+                              (causal && kv0 + BKV - 1 > wpos_lo) ||
+                              (window > 0 && kv0 <= wpos_hi - window);
+            if (edge) {
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int qpos =
+                                wpos_lo + mt * 16 + g + (e >> 1) * 8;
+                            const int kp = kv0 + nt * 8 + 2 * t + (e & 1);
+                            const bool keep =
+                                kp < Lkv && (!causal || kp <= qpos) &&
+                                (window <= 0 || qpos - kp < window);
+                            if (!keep) s[mt][nt][e] = -INFINITY;
+                        }
+            }
+            // online softmax in the exp2 domain
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    float mx = -INFINITY;
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt)
+                        mx = fmaxf(mx, fmaxf(s[mt][nt][2 * r],
+                                             s[mt][nt][2 * r + 1]));
+                    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+                    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+                    const float m_new = fmaxf(m_run[mt][r], mx * scale_log2);
+                    const float safe = m_new == -INFINITY ? 0.f : m_new;
+                    const float corr = ex2(m_run[mt][r] - safe);
+                    float sum = 0.f;
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+                        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+                            const float p =
+                                ex2(fmaf(s[mt][nt][e], scale_log2, -safe));
+                            s[mt][nt][e] = p;
+                            sum += p;
+                        }
+                    }
+                    l_run[mt][r] = corr * l_run[mt][r] + sum;
+                    m_run[mt][r] = m_new;
+#pragma unroll
+                    for (int dt = 0; dt < DT; ++dt) {
+                        acc[mt][dt][2 * r] *= corr;
+                        acc[mt][dt][2 * r + 1] *= corr;
+                    }
+                }
+            }
+            // O += P V, P rounded to bf16 in registers
+#pragma unroll
+            for (int kk = 0; kk < BKV / 16; ++kk) {
+                uint32_t pa[MT][4];
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                    pa[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+                    pa[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+                    pa[mt][2] =
+                        pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+                    pa[mt][3] =
+                        pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+                }
+#pragma unroll
+                for (int dp = 0; dp < D / 16; ++dp) {
+                    uint32_t vf[4];
+                    ldmatrix_x4_trans(vf, smem_addr(vt + (kk * 16 + vb_row) * LD
+                                                    + dp * 16 + vb_col));
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt) {
+                        mma_bf16(acc[mt][2 * dp], pa[mt], vf[0], vf[1]);
+                        mma_bf16(acc[mt][2 * dp + 1], pa[mt], vf[2], vf[3]);
+                    }
+                }
+            }
+        }
+        __syncthreads();                     // stage it & 1 is free again
+    }
+    cp_async_wait<0>();
+
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float l = l_run[mt][r];
+            l += __shfl_xor_sync(FULL, l, 1);
+            l += __shfl_xor_sync(FULL, l, 2);
+            const float inv = l == 0.f ? 1.f : 1.f / l;
+            const int qi = wq_lo + mt * 16 + g + 8 * r;
+            if (qi < Lq) {
+                bf16* orow = o + b * sob + h * soh + (int64_t)qi * sol + 2 * t;
+#pragma unroll
+                for (int dt = 0; dt < DT; ++dt)
+                    *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
+                        __floats2bfloat162_rn(acc[mt][dt][2 * r] * inv,
+                                              acc[mt][dt][2 * r + 1] * inv);
+            }
+        }
+    }
+}
+
+bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int Hkv, int Lq, int Lkv, int causal, int window,
+               int q_offset, float scale, const long long* st, void* stream) {
+    using C = MmaTile<D>;
+    const int q_tiles = (Lq + C::BQ - 1) / C::BQ;
+    if (q_tiles > MAX_GRID_YZ || (long long)B * H > 0x7fffffffLL)
+        return UNSUPPORTED;
+    // cp.async copies 16-byte rows: 8 bf16 elements
+    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+        return UNSUPPORTED;
+    for (int i = 0; i < 12; ++i)
+        if (st[i] % 8) return UNSUPPORTED;
+    static bool smem_set = false;            // once per instance
+    if (!smem_set) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            C::SMEM);
+        if (e != cudaSuccess) return (int)e;
+        smem_set = true;
+    }
+    dim3 grid(B * H, q_tiles);
+    flash_mma_kernel<D><<<grid, MMA_THREADS, C::SMEM, (cudaStream_t)stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), H, H / Hkv, Lq,
+        Lkv, causal, window, q_offset, scale * LOG2E, st[0], st[1], st[2],
+        st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+    return (int)cudaGetLastError();
+}
+
+// the head-dim dispatch: one instance of each kernel per supported d
+#define FLASH_LAUNCH(NAME, FN)                                                 \
+    template <int D>                                                           \
+    struct NAME {                                                              \
+        static int run(const void* q, const void* k, const void* v, void* o,  \
+                       int B, int H, int Hkv, int Lq, int Lkv, int causal,    \
+                       int window, int q_offset, float scale,                  \
+                       const long long* st, void* stream) {                    \
+            return FN<D>(q, k, v, o, B, H, Hkv, Lq, Lkv, causal, window,       \
+                         q_offset, scale, st, stream);                         \
+        }                                                                      \
+    };
+FLASH_LAUNCH(SimtLaunch, launch_simt)
+FLASH_LAUNCH(MmaLaunch, launch_mma)
+#undef FLASH_LAUNCH
+
+template <template <int> class L>
+int by_head_dim(const void* q, const void* k, const void* v, void* o, int B,
+                int H, int Hkv, int Lq, int Lkv, int D, int causal, int window,
+                int q_offset, float scale, const long long* st, void* stream) {
+    if (Hkv < 1 || H % Hkv) return UNSUPPORTED;
     switch (D) {
-        case 16: return launch_d<T, 16>(q, k, v, o, B, H, Hkv, Lq, Lkv,
-                                        causal, window, q_offset, scale, st,
-                                        stream);
-        case 32: return launch_d<T, 32>(q, k, v, o, B, H, Hkv, Lq, Lkv,
-                                        causal, window, q_offset, scale, st,
-                                        stream);
-        case 64: return launch_d<T, 64>(q, k, v, o, B, H, Hkv, Lq, Lkv,
-                                        causal, window, q_offset, scale, st,
-                                        stream);
-        case 128: return launch_d<T, 128>(q, k, v, o, B, H, Hkv, Lq, Lkv,
-                                          causal, window, q_offset, scale,
-                                          st, stream);
-        case 256: return launch_d<T, 256>(q, k, v, o, B, H, Hkv, Lq, Lkv,
-                                          causal, window, q_offset, scale,
-                                          st, stream);
+        case 16: return L<16>::run(q, k, v, o, B, H, Hkv, Lq, Lkv, causal,
+                                   window, q_offset, scale, st, stream);
+        case 32: return L<32>::run(q, k, v, o, B, H, Hkv, Lq, Lkv, causal,
+                                   window, q_offset, scale, st, stream);
+        case 64: return L<64>::run(q, k, v, o, B, H, Hkv, Lq, Lkv, causal,
+                                   window, q_offset, scale, st, stream);
+        case 128: return L<128>::run(q, k, v, o, B, H, Hkv, Lq, Lkv, causal,
+                                     window, q_offset, scale, st, stream);
+        case 256: return L<256>::run(q, k, v, o, B, H, Hkv, Lq, Lkv, causal,
+                                     window, q_offset, scale, st, stream);
         default: return UNSUPPORTED;
     }
 }
@@ -259,10 +658,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 // q (B, H, Lq, D), k and v (B, Hkv, Lkv, D), o like q; the strides are
 // (batch, head, position) of q, k, v and o in turn, in elements.  Returns
-// UNSUPPORTED, launching nothing, unless D is 16, 32, 64, 128 or 256, Hkv
-// divides H, the query group fits a block (group * max(1, D / 32) <= 256)
-// and B and Hkv fit the grid (<= 65535).
-#define FLASH_ENTRY(NAME, T)                                                  \
+// UNSUPPORTED, launching nothing, unless D is 16, 32, 64, 128 or 256 and
+// Hkv divides H; float32 also needs the query group to fit a block
+// (group * max(1, D / 32) <= 256) and B, Hkv <= 65535; bf16 needs
+// ceil(Lq / BQ) <= 65535, 16-byte aligned pointers and strides that are
+// multiples of 8 elements.
+#define FLASH_ENTRY(NAME, LAUNCH)                                             \
     extern "C" int NAME(const void* q, const void* k, const void* v, void* o, \
                         int B, int H, int Hkv, int Lq, int Lkv, int D,        \
                         int causal, int window, int q_offset, float scale,    \
@@ -273,12 +674,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                         void* stream) {                                       \
         const long long st[12] = {sqb, sqh, sql, skb, skh, skl,               \
                                   svb, svh, svl, sob, soh, sol};              \
-        return launch<T>(q, k, v, o, B, H, Hkv, Lq, Lkv, D, causal, window,   \
-                         q_offset, scale, st, stream);                        \
+        return by_head_dim<LAUNCH>(q, k, v, o, B, H, Hkv, Lq, Lkv, D, causal, \
+                                   window, q_offset, scale, st, stream);      \
     }
 
-FLASH_ENTRY(flash_attention_f32, float)
-FLASH_ENTRY(flash_attention_bf16, __nv_bfloat16)
+FLASH_ENTRY(flash_attention_f32, SimtLaunch)
+FLASH_ENTRY(flash_attention_bf16, MmaLaunch)
 
 extern "C" const char* repro_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);

@@ -2,9 +2,12 @@
 
 Counterpart of the reference's ``kernels/coded_matmul/ops.py``, whose TPU
 kernel is ``coded_matmul_pallas`` (``src/repro/kernels/coded_matmul/
-kernel.py``).  The kernel (``csrc/coded_matmul.cu``) is a batched tiled
-float32 SIMT GEMM with masked M/N/Z edges; its source note gives the bound
-on the card and the design.
+kernel.py``).  The source (``csrc/coded_matmul.cu``) holds two batched
+GEMM kernels with masked M/N/Z edges: float32 runs three TF32 tensor-core
+products per output (each operand split into a TF32 high and low part,
+``A_hi·B_hi + A_hi·B_lo + A_lo·B_hi``), which keeps float32 accuracy;
+bf16 runs the first CUDA-core design.  Its source note gives the bound on
+the card and the designs.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel or raises — there is no fallback.  :func:`coded_matmul` counts

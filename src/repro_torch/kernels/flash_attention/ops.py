@@ -2,11 +2,12 @@
 
 Counterpart of the reference's ``kernels/flash_attention/ops.py``, whose
 TPU kernel is ``flash_attention_pallas`` (``src/repro/kernels/
-flash_attention/kernel.py``).  The kernel (``csrc/flash_attention.cu``)
-runs one thread block per (batch, query tile, KV head) over the whole query
-group, so every K/V tile is read once per group; its KV loop covers only
-the keys the causal mask and the window leave.  Its source note gives the
-bound on the card and the design.
+flash_attention/kernel.py``).  The source (``csrc/flash_attention.cu``)
+holds two kernels: bf16 runs FlashAttention-2 on the tensor cores
+(``mma.sync`` bf16 products fed by ``ldmatrix`` from a ``cp.async`` ring of
+K/V tiles), float32 the first CUDA-core design, whose products keep full
+float32 accuracy.  Both loop only over the keys the causal mask and the
+window leave.  Its source note gives the bound on the card and the designs.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel or raises — there is no fallback.  :func:`flash_attention`
@@ -25,6 +26,18 @@ _KERNEL_DTYPES = {torch.float32: "flash_attention_f32",
                   torch.bfloat16: "flash_attention_bf16"}
 
 
+def _strides(t: torch.Tensor) -> list[int]:
+    """(batch, head, position) strides in elements; 0 for a dim of size 1,
+    whose stride the kernel never uses."""
+    return [st if n > 1 else 0 for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
+def _rows_16b(t: torch.Tensor) -> bool:
+    """Every row starts on 16 bytes (8 bf16): what the bf16 kernel's
+    ``cp.async`` copies need."""
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in _strides(t))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_offset: int = 0) -> torch.Tensor:
@@ -35,7 +48,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keeps keys with ``qpos - kpos < window`` (``None`` or 0: no window).
     On the card q, k and v may be any strided views whose last dim is
     contiguous (the model's ``(B, L, H, d)`` → ``(B, H, L, d)`` views go in
-    as they are); the output takes q's layout.
+    as they are); the output takes q's layout.  In bf16 each row must also
+    start on 16 bytes (pointer 16-byte aligned, strides multiples of 8
+    elements); an operand whose rows do not is copied once.
     """
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"need q (B, H, Lq, d) and k, v (B, Hkv, Lkv, d); "
@@ -63,9 +78,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{k.dtype}, {v.dtype}")
     # the head dims, query groups and grid sizes the kernel takes are known
     # to its launcher alone, which raises through ``check``
-    # the kernel reads rows along the contiguous last dim; any other layout
-    # is copied once here
+    # the kernels read rows along the contiguous last dim, the bf16 one
+    # with 16-byte copies; any other layout is copied once here
     q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if _rows_16b(t) else
+                   t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     out = torch.empty_like(q)            # q's layout, last dim contiguous
     if out.numel() == 0:
         return out
@@ -75,8 +94,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, H, Hkv, Lq, Lkv, d, int(bool(causal)), window, q_offset,
-                1.0 / d ** 0.5, *q.stride()[:3],
-                *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], stream)
+                1.0 / d ** 0.5, *_strides(q), *_strides(k), *_strides(v),
+                *_strides(out), stream)
     check(lib, rc, f"flash_attention (B={B}, H={H}, Hkv={Hkv}, head dim "
                    f"{d})")
     flash_attention.launches += 1

@@ -11,6 +11,9 @@ scaled by the contraction length; the selective scan 1e-4 in float32), over
 the shape sweeps of ``tests/test_kernels.py`` including the non-divisible
 shapes, plus hymba-1.5b's attention and scan shapes (the attention there
 to 1e-2 and a relative Frobenius error of 1e-2: its outputs are small).
+The bf16 tensor-core flash kernel's edge cases also hold each block of 16
+query rows of each head to a relative Frobenius error of 1e-2, so that a
+mask off by one key in a few rows shows.
 """
 import numpy as np
 import pytest
@@ -21,7 +24,8 @@ from repro_torch.core import split_contraction
 from repro_torch.kernels import (coded_matmul, flash_attention, poly_encode,
                                  ssm_scan, worker_products,
                                  worker_products_complex)
-from repro_torch.kernels.coded_matmul.ref import (coded_matmul_complex_ref,
+from repro_torch.kernels.coded_matmul.ref import (coded_matmul_3xtf32_ref,
+                                                  coded_matmul_complex_ref,
                                                   coded_matmul_ref)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.poly_encode.ref import poly_encode_ref
@@ -39,6 +43,16 @@ FLASH_SHAPES = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 64, 64, 32),
                 (1, 2, 2, 50, 70, 16),
                 (1, 25, 5, 300, 300, 64),       # hymba's heads
                 (2, 4, 1, 70, 70, 128), (1, 8, 1, 40, 40, 256)]
+# float32 3xTF32 tile edges (W, M, Z, N): M and N off the 128 tile, Z off
+# the 32 k-step and the 8 of an mma, Z < 8, Z % 4 != 0 (the 4-byte copies)
+# and Z % 4 == 0 (the 16-byte copies)
+MATMUL_EDGES = [(2, 1, 1, 1), (1, 3, 5, 7), (2, 64, 4, 64), (3, 129, 4, 131),
+                (1, 200, 36, 200), (2, 130, 33, 129), (1, 257, 100, 250),
+                (1, 128, 4096, 128)]
+# bf16 flash tile edges (Lq, Lkv): off the 128 / 64 query tiles and the 64
+# (32 at d = 256) key tiles
+FLASH_EDGES = [(1, 1), (7, 130), (65, 64), (129, 129), (200, 333), (300, 97)]
+FLASH_DIMS = [16, 32, 64, 128, 256]
 SCAN_SHAPES = [(1, 32, 16, 4), (2, 48, 24, 16), (2, 100, 40, 8),
                (1, 33, 17, 16), (2, 40, 70, 5), (1, 20, 9, 32),
                (1, 70, 33, 1)]
@@ -100,6 +114,34 @@ def test_coded_matmul_kernel_views_and_accumulate(cuda):
     out = torch.ones(5, 40, 17, device=cuda)
     coded_matmul(A, B, out, accumulate=True, sign=-1)
     _assert_close(out, 1 - coded_matmul_ref(A, B), 2e-4, 2e-4 * 24 ** 0.5)
+
+
+@pytest.mark.parametrize("W,M,Z,N", MATMUL_EDGES)
+def test_coded_matmul_f32_tile_edges(cuda, W, M, Z, N):
+    """The 3xTF32 kernel off its tiles: to the reference's 2e-4 against the
+    plain version, and to 1e-5 (relative Frobenius) against the emulation
+    of its own arithmetic."""
+    A = _randn((W, M, Z), "float32", cuda, 30)
+    B = _randn((W, Z, N), "float32", cuda, 31)
+    got = worker_products(A, B)
+    _assert_close(got, coded_matmul_ref(A, B), 2e-4, 2e-4 * Z ** 0.5)
+    emu = coded_matmul_3xtf32_ref(A, B)
+    assert float(torch.linalg.vector_norm(got - emu)
+                 / torch.linalg.vector_norm(emu)) <= 1e-5
+
+
+@pytest.mark.parametrize("Z,N", [(24, 17), (64, 48)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_coded_matmul_f32_views_and_accumulate(cuda, Z, N, offset):
+    """Worker-strided views (the 16-byte copies when rows allow them, the
+    4-byte ones for odd rows or an unaligned base) and ``out -= A@B``."""
+    W, M = 5, 40
+    flat = _randn((2 * W * M * Z + offset,), "float32", cuda, 32)
+    A = flat[offset:].view(W, 2, M, Z)[:, 1]      # worker stride 2*M*Z
+    B = _randn((W, Z, N), "float32", cuda, 33)
+    out = torch.ones(W, M, N, device=cuda)
+    coded_matmul(A, B, out, accumulate=True, sign=-1)
+    _assert_close(out, 1 - coded_matmul_ref(A, B), 2e-4, 2e-4 * Z ** 0.5)
 
 
 @pytest.mark.parametrize("W,K,R,C", ENCODE_SHAPES)
@@ -184,6 +226,101 @@ def test_flash_kernel_takes_model_views(cuda):
     _assert_close(got, attention_ref(q, k, k, window=16), 5e-2, 5e-2)
     out = flash_attention(q[:, :, :4], k, k, window=1, q_offset=200)
     assert not out.float().abs().max()
+
+
+def _assert_flash_rows(got, want, rows=16, tol=1e-2):
+    """Relative Frobenius error of each block of ``rows`` query rows of each
+    (batch, head) <= tol; blocks that should be 0 (rows that see no key)
+    must be 0.  The rounding of P and of the output to bf16 stays well
+    inside tol; a mask off by one key moves a row by about 1 / keys."""
+    B, H, L, d = want.shape
+    pad = (0, 0, 0, -L % rows)
+    g, w = (torch.nn.functional.pad(x.float(), pad).reshape(B, H, -1,
+                                                              rows * d)
+            for x in (got, want))
+    err = torch.linalg.vector_norm(g - w, dim=-1)
+    ref = torch.linalg.vector_norm(w, dim=-1)
+    assert bool((err <= tol * ref).all()), float(
+        (err / ref.clamp_min(1e-30)).max())
+
+
+def _assert_flash_bf16(got, want):
+    _assert_close(got, want, 5e-2, 5e-2)
+    _assert_flash_rows(got, want)
+
+
+def _flash_case(device, B, H, Hkv, Lq, Lkv, d, seed):
+    """bf16 q (B, H, Lq, d), k and v (B, Hkv, Lkv, d)."""
+    return (_randn((B, H, Lq, d), "bfloat16", device, seed),
+            _randn((B, Hkv, Lkv, d), "bfloat16", device, seed + 1),
+            _randn((B, Hkv, Lkv, d), "bfloat16", device, seed + 2))
+
+
+@pytest.mark.parametrize("d", FLASH_DIMS)
+@pytest.mark.parametrize("Lq,Lkv", FLASH_EDGES)
+def test_flash_bf16_tile_edges(cuda, Lq, Lkv, d):
+    """Lq and Lkv off the tensor-core kernel's tiles, causal (queries
+    aligned to the end of the keys where Lkv >= Lq), non-causal and
+    windowed."""
+    q, k, v = _flash_case(cuda, 1, 4, 2, Lq, Lkv, d, 40)
+    off = max(0, Lkv - Lq)
+    for causal, window in ((True, 0), (False, 0), (True, 33)):
+        got = flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=off)
+        _assert_flash_bf16(got, attention_ref(q, k, v, causal=causal,
+                                              window=window or None,
+                                              q_offset=off))
+
+
+@pytest.mark.parametrize("window", [37, 64, 100])
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_bf16_window_starts_inside_a_tile(cuda, window, d):
+    """q_offset > 0 with a window whose first key falls inside a key tile,
+    and rows (past Lkv + window) that see no key at all: those give 0."""
+    q, k, v = _flash_case(cuda, 2, 6, 3, 230, 300, d, 43)
+    for off in (250, 41):
+        got = flash_attention(q, k, v, window=window, q_offset=off)
+        _assert_flash_bf16(got, attention_ref(q, k, v, window=window,
+                                              q_offset=off))
+    got = flash_attention(q, k[:, :, :50], v[:, :, :50], window=window)
+    _assert_flash_bf16(got, attention_ref(q, k[:, :, :50], v[:, :, :50],
+                                          window=window))
+    assert not got[:, :, 50 + window:].float().abs().max()
+
+
+@pytest.mark.parametrize("d", FLASH_DIMS)
+@pytest.mark.parametrize("group", [1, 5, 8])
+def test_flash_bf16_query_groups(cuda, group, d):
+    """GQA reads K/V of head h // group; no limit on the group in bf16."""
+    q, k, v = _flash_case(cuda, 2, 2 * group, 2, 100, 100, d, 46)
+    for window in (0, 30):
+        got = flash_attention(q, k, v, window=window)
+        _assert_flash_bf16(got, attention_ref(q, k, v,
+                                              window=window or None))
+
+
+def test_flash_bf16_takes_a_group_the_float32_kernel_refuses(cuda):
+    """128 query heads on one KV head at d = 128: the float32 kernel's
+    group-per-block limit (group * 4 lanes <= 256) refuses it, bf16 runs."""
+    q, k, v = _flash_case(cuda, 1, 128, 1, 20, 20, 128, 49)
+    _assert_flash_bf16(flash_attention(q, k, v), attention_ref(q, k, v))
+    with pytest.raises(ValueError):
+        flash_attention(q.float(), k.float(), v.float())
+
+
+def test_flash_bf16_copies_unaligned_views(cuda):
+    """Rows that do not start on 16 bytes (an odd position stride and an
+    unaligned base) are copied once and give the same result."""
+    B, L, H, d = 2, 70, 4, 64
+    flat = _randn((B * L * (H * d + 1) + 1,), "bfloat16", cuda, 50)
+    x = flat[1:].view(B, L, H * d + 1)[..., :H * d].view(B, L, H, d)
+    q = k = v = x.transpose(1, 2)                 # position stride H*d + 1
+    assert q.stride(2) % 8 and q.data_ptr() % 16
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=16)
+    assert flash_attention.launches == before + 1
+    _assert_flash_bf16(got, attention_ref(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), window=16))
 
 
 @pytest.mark.parametrize("L", [2048])

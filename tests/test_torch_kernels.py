@@ -35,6 +35,8 @@ from repro_torch.kernels import (_build, coded_matmul, flash_attention,
                                  worker_products_complex)
 from repro_torch.kernels.coded_matmul.ref import \
     coded_matmul_ref as plain_coded_matmul
+from repro_torch.kernels.coded_matmul.ref import (coded_matmul_3xtf32_ref,
+                                                  tf32_round)
 from repro_torch.kernels.flash_attention.ref import \
     attention_ref as plain_attention
 from repro_torch.kernels.poly_encode.ref import \
@@ -132,6 +134,62 @@ def test_coded_matmul_accumulate_and_sign_on_cpu():
     torch.testing.assert_close(out, 1 - P)
     coded_matmul(ta, tb, out)                     # plain store overwrites
     torch.testing.assert_close(out, P)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """``tf32_round`` is ``cvt.rna.tf32.f32``: 10 mantissa bits kept, ties
+    away from zero."""
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -11 - 2 ** -20,
+                      1 + 3 * 2 ** -11, 3.0, -0.0], dtype=torch.float32)
+    want = [1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 1 + 2 ** -9, 3.0, -0.0]
+    assert tf32_round(x).tolist() == want
+    r = torch.tensor(np.random.default_rng(7).standard_normal(10_000),
+                     dtype=torch.float32)
+    hi = tf32_round(r)
+    assert not int((hi.view(torch.int32) & 0x1FFF).abs().sum())
+    assert float(((r - hi).abs() / r.abs()).max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("W,M,Z,N", MATMUL_SHAPES + [(1, 64, 4096, 64)])
+def test_3xtf32_emulation_within_float32_tolerance(W, M, Z, N):
+    """Three TF32 products (``A_lo·B_hi + A_hi·B_lo + A_hi·B_hi``), the float32
+    kernel's arithmetic on the card, stay within the reference's float32
+    tolerance of its jnp oracle."""
+    (ja, ta), (jb, tb) = _matmul_inputs(W, M, Z, N, "float32", seed=5)
+    np.testing.assert_allclose(_f32(coded_matmul_3xtf32_ref(ta, tb)),
+                               _f32(coded_matmul_ref(ja, jb)), rtol=2e-4,
+                               atol=2e-4 * Z ** 0.5)
+
+
+def test_single_tf32_pass_misses_float32_tolerance():
+    """Why the kernel takes three passes: one TF32 product at Z = 4096 with
+    N(0, 1) operands errs by ~0.02 per output, beyond the float32 atol of
+    2e-4 * sqrt(Z) = 0.0128 on a large share of the outputs."""
+    Z = 4096
+    (ja, ta), (jb, tb) = _matmul_inputs(1, 64, Z, 64, "float32", seed=6)
+    want = _f32(coded_matmul_ref(ja, jb))
+    limit = 2e-4 * Z ** 0.5 + 2e-4 * np.abs(want)
+    one = _f32(plain_coded_matmul(tf32_round(ta), tf32_round(tb)))
+    three = _f32(coded_matmul_3xtf32_ref(ta, tb))
+    assert np.mean(np.abs(one - want) > limit) > 0.1
+    assert not np.any(np.abs(three - want) > limit)
+
+
+@pytest.mark.parametrize("dropped", ["A_hi*B_lo", "A_lo*B_hi"])
+def test_two_tf32_passes_miss_float32_tolerance(dropped):
+    """Nor do two passes suffice: dropping either cross term of the 3xTF32
+    split at Z = 4096 leaves more than 5 % of the outputs beyond the float32
+    limit, so the float32 bound counts three TF32 products."""
+    Z = 4096
+    (ja, ta), (jb, tb) = _matmul_inputs(1, 64, Z, 64, "float32", seed=6)
+    want = _f32(coded_matmul_ref(ja, jb))
+    limit = 2e-4 * Z ** 0.5 + 2e-4 * np.abs(want)
+    a_hi, b_hi = tf32_round(ta), tf32_round(tb)
+    a_lo, b_lo = tf32_round(ta - a_hi), tf32_round(tb - b_hi)
+    cross = (plain_coded_matmul(a_lo, b_hi) if dropped == "A_hi*B_lo"
+             else plain_coded_matmul(a_hi, b_lo))
+    two = _f32(cross + plain_coded_matmul(a_hi, b_hi))
+    assert np.mean(np.abs(two - want) > limit) > 0.05
 
 
 @pytest.mark.parametrize("bad", ["shape", "out_shape", "accumulate", "sign"])
