@@ -29,8 +29,10 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
    (4 x 25/5 heads x 8192 x 64, bf16, window 1024 and full causal; to 1e-2
    elementwise and in relative Frobenius error), the
    selective scan at the sweep shapes and at hymba's (4 x 8192 x 3200 x 16,
-   bf16, B and C strided); kernel, plain version and library call (SDPA;
-   none for the scan) timed with CUDA events beside the card's bound.
+   bf16, B and C strided), then at falcon-mamba-7b's channel width (Dm
+   8192, the same 4 x 8192; checked on the first 512 steps), and the
+   scan's design named; kernel, plain version and library call (SDPA; none
+   for the scan) timed with CUDA events beside the card's bound.
 7. hymba-smoke in float32: the same weights on the card and on the CPU,
    prefill and decode logits within 2e-4 and 2e-3.
 8. hymba-1.5b at full width (bf16, seeded random weights): a 1 x 2048
@@ -117,6 +119,9 @@ SCAN_SWEEP = [(1, 32, 16, 4), (2, 48, 24, 16), (2, 100, 40, 8),
 # the script's time limit, then greedy decode
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "hymba-1.5b", 4, 8192, 32
 SFU_PER_SM_CLOCK = 16        # exp results per SM per clock (compute 9.0)
+# falcon-mamba-7b's channels (src/repro_torch/configs/falcon_mamba_7b.py)
+# and the length the scan's check against the plain loop is cut to there
+FALCON_D_INNER, SCAN_CUT_L = 8192, 512
 
 
 def log(msg: str) -> None:
@@ -235,8 +240,10 @@ def ptxas_report(text: str) -> dict:
 
 # instances on the main paths, which must not spill (flash at d = 256 may:
 # its spill is reported), by a substring of their mangled names:
-# flash_mma_kernel<64> and coded_matmul_tf32x3_kernel<true>
-NO_SPILL = ("flash_mma_kernelILi64E", "coded_matmul_tf32x3_kernelILb1E")
+# flash_mma_kernel<64>, coded_matmul_tf32x3_kernel<true> and every instance
+# of the selective scan (its states live in registers)
+NO_SPILL = ("flash_mma_kernelILi64E", "coded_matmul_tf32x3_kernelILb1E",
+            "ssm_scan_kernel")
 
 
 def phase_build() -> dict:
@@ -256,8 +263,9 @@ def phase_build() -> dict:
 
 
 def check_no_spill(report: dict) -> None:
-    """The main path's tensor-core instances hold their accumulators in
-    registers: ptxas must report them, with no spill."""
+    """The main path's tensor-core instances hold their accumulators, and
+    the scan its states, in registers: ptxas must report them, with no
+    spill."""
     for key in NO_SPILL:
         found = {n: r for n, r in report.items() if key in n}
         if not found or any("registers" not in r for r in found.values()):
@@ -560,10 +568,27 @@ def phase_flash(dev, gen) -> dict:
     return out
 
 
+def _scan_bound(Bt, L, Dm, S, elem=2) -> dict:
+    """The scan's bound: its exps on the special-function units against
+    its bytes (x, dt, B, C read once, y written once; A, D, h_final)."""
+    nbytes = elem * (3 * Bt * L * Dm + 2 * Bt * L * S) + 4 * (
+        Dm * S + Dm + Bt * Dm * S)
+    exps = Bt * L * Dm * S
+    sms, clock = sm_count_and_max_clock()
+    t_exp = exps / (SFU_PER_SM_CLOCK * sms * clock) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    b_ms, b_by = (t_exp, "operations") if t_exp >= t_bytes else \
+        (t_bytes, "bytes")
+    return {"bytes": nbytes, "exps": exps, "sm_count": sms,
+            "max_sm_clock_hz": clock, "exp_bound_ms": t_exp,
+            "byte_bound_ms": t_bytes, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_scan(dev, gen) -> dict:
     """The scan kernel against its plain version: the sweep shapes (float32
     and bfloat16, B and C as column views of one projection), then hymba's
-    prefill shape (Bt=4, L=8192, Dm=3200, S=16, bf16)."""
+    prefill shape (Bt=4, L=8192, Dm=3200, S=16, bf16) and falcon-mamba-7b's
+    channel width (Dm=8192, the same 4 x 8192; checked on a cut length)."""
     from repro_torch.kernels import ssm_scan
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -587,36 +612,59 @@ def phase_scan(dev, gen) -> dict:
             check_close(h, want_h, 1e-4, 1e-4, f"ssm_scan h {dt} {shape}")
     log("ssm_scan: sweep shapes agree with the plain version (y: float32 "
         "1e-4, bfloat16 5e-2; final state 1e-4)")
+
     Bt, L, Dm, S = LM_BATCH, LM_PROMPT, 3200, 16
     args = inputs(Bt, L, Dm, S, torch.bfloat16)
     y, h = ssm_scan(*args, return_final=True)
     want_y, want_h = ssm_scan_ref(*args, return_final=True)
     err = check_close(y, want_y, 5e-2, 5e-2, "ssm_scan hymba y")
     h_err = check_close(h, want_h, 1e-4, 1e-4, "ssm_scan hymba h_final")
-    nbytes = 2 * (3 * Bt * L * Dm + 2 * Bt * L * S) + 4 * (
-        Dm * S + Dm + Bt * Dm * S)
-    exps = Bt * L * Dm * S
-    sms, clock = sm_count_and_max_clock()
-    t_exp = exps / (SFU_PER_SM_CLOCK * sms * clock) * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    b_ms, b_by = (t_exp, "operations") if t_exp >= t_bytes else \
-        (t_bytes, "bytes")
+    bound = _scan_bound(Bt, L, Dm, S)
+    b_ms, b_by = bound["bound_ms"], bound["bound_by"]
     row = {"shape": [Bt, L, Dm, S], "dtype": "bfloat16", "max_abs_err": err,
-           "h_final_max_abs_err": h_err, "bytes": nbytes, "exps": exps,
-           "sm_count": sms, "max_sm_clock_hz": clock,
-           "exp_bound_ms": t_exp, "byte_bound_ms": t_bytes,
+           "h_final_max_abs_err": h_err, **bound,
            "ms": time_ms(lambda: ssm_scan(*args, return_final=True), 5),
            "plain_ms": time_ms(lambda: ssm_scan_ref(*args,
                                                     return_final=True), 1),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+           "library_ms": None}
     log(f"ssm_scan hymba {Bt}x{L}x{Dm}x{S} bf16 (B, C strided): kernel "
         f"{row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, library none, "
-        f"bound {b_ms:.3f} ms ({b_by}; bytes {t_bytes:.3f} ms, {exps:.3g} "
-        f"exps {t_exp:.3f} ms at {SFU_PER_SM_CLOCK}/SM/clock x {sms} SMs x "
-        f"{clock / 1e9:.2f} GHz); max abs err y {err:.3e}, h_final "
-        f"{h_err:.3e}")
+        f"bound {b_ms:.3f} ms "
+        f"({b_by}; bytes {bound['byte_bound_ms']:.3f} ms, "
+        f"{bound['exps']:.3g} exps {bound['exp_bound_ms']:.3f} ms at "
+        f"{SFU_PER_SM_CLOCK}/SM/clock x {bound['sm_count']} SMs x "
+        f"{bound['max_sm_clock_hz'] / 1e9:.2f} GHz); max abs err y "
+        f"{err:.3e}, h_final {h_err:.3e}")
     del args, y, h, want_y, want_h
     torch.cuda.empty_cache()
+
+    # falcon-mamba-7b's channels: checked on the first SCAN_CUT_L steps
+    # (the plain loop over 8192 steps would take seconds), timed in full
+    Dm = FALCON_D_INNER
+    args = inputs(Bt, L, Dm, S, torch.bfloat16)
+    cut = [t[:, :SCAN_CUT_L] if t.ndim == 3 else t for t in args]
+    want_y, want_h = ssm_scan_ref(*cut, return_final=True)
+    y, h = ssm_scan(*cut, return_final=True)
+    f_err = check_close(y, want_y, 5e-2, 5e-2, "ssm_scan falcon y (cut)")
+    f_h = check_close(h, want_h, 1e-4, 1e-4, "ssm_scan falcon h (cut)")
+    bound = _scan_bound(Bt, L, Dm, S)
+    falcon = {"shape": [Bt, L, Dm, S], "dtype": "bfloat16",
+              "checked_length": SCAN_CUT_L, "max_abs_err": f_err,
+              "h_final_max_abs_err": f_h, **bound,
+              "ms": time_ms(lambda: ssm_scan(*args, return_final=True), 5)}
+    log(f"ssm_scan falcon-mamba-7b {Bt}x{L}x{Dm}x{S} bf16: kernel "
+        f"{falcon['ms']:.3f} ms, bound {bound['bound_ms']:.3f} ms "
+        f"({bound['bound_by']}); first "
+        f"{SCAN_CUT_L} steps vs plain: max abs err y {f_err:.3e}, h_final "
+        f"{f_h:.3e}")
+    log("ssm_scan design: 2 lanes per channel hold its states in registers; "
+        "software-pipelined steps (next step's loads and ex2.approx exps in "
+        "flight), full chunks unrolled; 128-channel x 32-step chunks, x/dt "
+        "by 16-byte cp.async, B/C through registers, y as 16-byte rows; one "
+        "barrier a chunk")
+    del args, cut, y, h, want_y, want_h
+    torch.cuda.empty_cache()
+    row["falcon"] = falcon
     return row
 
 

@@ -53,9 +53,15 @@ MATMUL_EDGES = [(2, 1, 1, 1), (1, 3, 5, 7), (2, 64, 4, 64), (3, 129, 4, 131),
 # (32 at d = 256) key tiles
 FLASH_EDGES = [(1, 1), (7, 130), (65, 64), (129, 129), (200, 333), (300, 97)]
 FLASH_DIMS = [16, 32, 64, 128, 256]
+# (Bt, L, Dm, S): the reference's sweep and odd state sizes, then the
+# kernel's edges: L = 1, L a multiple of its 32-step chunk (the unrolled
+# path) and off it, Dm off its 128-channel block with rows of 16 bytes
+# (the cp.async path) and without, each state-size instance
 SCAN_SHAPES = [(1, 32, 16, 4), (2, 48, 24, 16), (2, 100, 40, 8),
                (1, 33, 17, 16), (2, 40, 70, 5), (1, 20, 9, 32),
-               (1, 70, 33, 1)]
+               (1, 70, 33, 1), (1, 1, 8, 16), (2, 64, 136, 16),
+               (1, 95, 264, 32), (2, 31, 130, 16), (1, 33, 17, 5),
+               (2, 31, 130, 32), (1, 1, 8, 4)]
 
 pytestmark = pytest.mark.gpu
 
@@ -342,7 +348,10 @@ def test_flash_kernel_hymba_prefill_shape(cuda, L, window):
                  / torch.linalg.vector_norm(w)) <= 1e-2
 
 
-def _scan_inputs(Bt, L, Dm, S, dtype, device, seed, strided=False):
+def _scan_inputs(Bt, L, Dm, S, dtype, device, seed, offset=None):
+    """x, dt, A, B, C, D; with ``offset``, B and C are column slices at that
+    offset of one (Bt, L, offset + 2S) projection, as in the model (hymba's
+    dt_rank puts them at 100)."""
     rng = np.random.default_rng(seed)
 
     def f(a):
@@ -351,9 +360,9 @@ def _scan_inputs(Bt, L, Dm, S, dtype, device, seed, strided=False):
     x = f(rng.standard_normal((Bt, L, Dm))).to(DTYPES[dtype])
     dt = f(rng.uniform(0.01, 0.2, (Bt, L, Dm))).to(DTYPES[dtype])
     A = f(-rng.uniform(0.1, 1.0, (Dm, S)))
-    if strided:                  # column slices of one x_proj output
-        xp = f(rng.standard_normal((Bt, L, 7 + 2 * S))).to(DTYPES[dtype])
-        B, C = xp[..., 7:7 + S], xp[..., 7 + S:]
+    if offset is not None:       # column slices of one x_proj output
+        xp = f(rng.standard_normal((Bt, L, offset + 2 * S))).to(DTYPES[dtype])
+        B, C = xp[..., offset:offset + S], xp[..., offset + S:]
     else:
         B = f(rng.standard_normal((Bt, L, S))).to(DTYPES[dtype])
         C = f(rng.standard_normal((Bt, L, S))).to(DTYPES[dtype])
@@ -361,28 +370,78 @@ def _scan_inputs(Bt, L, Dm, S, dtype, device, seed, strided=False):
     return x, dt, A, B, C, D
 
 
+def _assert_scan(args, y, h, y_tol):
+    want_y, want_h = ssm_scan_ref(*args, return_final=True)
+    assert y.dtype == args[0].dtype and h.dtype == torch.float32
+    _assert_close(y, want_y, y_tol, y_tol)
+    _assert_close(h, want_h, 1e-4, 1e-4)
+
+
 @pytest.mark.parametrize("Bt,L,Dm,S", SCAN_SHAPES)
-@pytest.mark.parametrize("strided", [False, True])
-def test_ssm_scan_kernel_matches_plain(cuda, Bt, L, Dm, S, strided):
-    args = _scan_inputs(Bt, L, Dm, S, "float32", cuda, 21, strided)
+@pytest.mark.parametrize("offset", [None, 7, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_kernel_matches_plain(cuda, Bt, L, Dm, S, offset, dtype):
+    """y to 1e-4 in float32 and 5e-2 in bf16, the state to 1e-4; B and C
+    contiguous, at the misaligned offset 7 (2-byte aligned in bf16) and at
+    hymba's 100."""
+    args = _scan_inputs(Bt, L, Dm, S, dtype, cuda, 21, offset)
     before = ssm_scan.launches
     y, h = ssm_scan(*args, return_final=True)
     torch.cuda.synchronize()
     assert ssm_scan.launches == before + 1
-    want_y, want_h = ssm_scan_ref(*args, return_final=True)
-    _assert_close(y, want_y, 1e-4, 1e-4)
-    _assert_close(h, want_h, 1e-4, 1e-4)
+    _assert_scan(args, y, h, 1e-4 if dtype == "float32" else 5e-2)
+
+
+def test_ssm_scan_kernel_zero_dt_rows_pass_the_state(cuda):
+    """dt = 0 decays by exactly 1 and adds nothing (the Pallas padding
+    rule): rows of zeros leave h as it was, and y is C h + D x there."""
+    args = list(_scan_inputs(2, 70, 136, 16, "float32", cuda, 25, 100))
+    args[1][:, 10:45] = 0.0
+    args[1][1, 60:] = 0.0
+    y, h = ssm_scan(*args, return_final=True)
+    _assert_scan(args, y, h, 1e-4)
+    _, h10 = ssm_scan(*(a[:, :10] if a.ndim == 3 else a for a in args),
+                      return_final=True)
+    _, h45 = ssm_scan(*(a[:, :45] if a.ndim == 3 else a for a in args),
+                      return_final=True)
+    torch.testing.assert_close(h45, h10, rtol=0, atol=0)
+
+
+def test_ssm_scan_kernel_decay_underflow(cuda):
+    """A large |dt A| (up to 50 * 16 = 800) makes the decay underflow to 0:
+    the state then holds only the newest input."""
+    args = list(_scan_inputs(1, 40, 136, 16, "float32", cuda, 26, 100))
+    S = args[2].shape[1]
+    args[2] = -torch.arange(1, S + 1, dtype=torch.float32,
+                            device=cuda).expand(136, S).contiguous()
+    args[1] = args[1] * 250.0
+    y, h = ssm_scan(*args, return_final=True)
+    _assert_scan(args, y, h, 1e-4)
 
 
 def test_ssm_scan_kernel_hymba_shape_bf16(cuda):
     """hymba's channels and state (Dm=3200, S=16), bf16 activations with B
     and C as strided views; y in bf16 to 5e-2, the f32 state to 1e-4."""
-    args = _scan_inputs(2, 256, 3200, 16, "bfloat16", cuda, 22, True)
+    args = _scan_inputs(2, 256, 3200, 16, "bfloat16", cuda, 22, 7)
     y, h = ssm_scan(*args, return_final=True)
-    want_y, want_h = ssm_scan_ref(*args, return_final=True)
-    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
-    _assert_close(y, want_y, 5e-2, 5e-2)
-    _assert_close(h, want_h, 1e-4, 1e-4)
+    _assert_scan(args, y, h, 5e-2)
+
+
+def test_ssm_scan_kernel_hymba_parameters_bf16(cuda):
+    """hymba's own A = -(1..16) and dt = softplus(dt_proj + dt_bias) near
+    0.01 (models/lm.py init), B and C at its dt_rank offset 100: y in bf16
+    to 5e-2, the f32 state to 1e-4."""
+    x, dt, _, B, C, D = _scan_inputs(1, 300, 3200, 16, "bfloat16", cuda, 27,
+                                     100)
+    rng = np.random.default_rng(28)
+    dt = torch.nn.functional.softplus(torch.tensor(
+        -4.6 + 0.5 * rng.standard_normal(x.shape), dtype=torch.float32,
+        device=cuda)).to(torch.bfloat16)
+    A = -torch.arange(1, 17, dtype=torch.float32,
+                      device=cuda).expand(3200, 16).contiguous()
+    args = (x, dt, A, B, C, D)
+    y, h = ssm_scan(*args, return_final=True)
+    _assert_scan(args, y, h, 5e-2)
 
 
 def test_hymba_smoke_on_the_card_matches_the_cpu(cuda):

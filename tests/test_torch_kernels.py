@@ -439,18 +439,37 @@ def test_ssm_scan_plain_final_state_matches_jnp_ref(Bt, L, Dm, S):
     np.testing.assert_allclose(_f32(h), _f32(want_h), rtol=1e-4, atol=1e-4)
 
 
-def test_ssm_scan_takes_column_views_of_x_proj():
+@pytest.mark.parametrize("r", [3, 7, 100])
+def test_ssm_scan_takes_column_views_of_x_proj(r):
     """B and C as column slices of one (Bt, L, r + 2S) projection (the
-    model's layout) give the same scan as contiguous copies."""
+    model's layout; hymba's dt_rank r is 100) give the same scan as
+    contiguous copies."""
     x, dt, A, _, _, D = (t for _, t in _scan_inputs(2, 20, 12, 4, 14))
-    xp = torch.randn(2, 20, 3 + 8, generator=torch.Generator().manual_seed(0))
-    B, C = xp[..., 3:7], xp[..., 7:]
-    assert B.stride(1) == 11 and not B.is_contiguous()
+    xp = torch.randn(2, 20, r + 8, generator=torch.Generator().manual_seed(0))
+    B, C = xp[..., r:r + 4], xp[..., r + 4:]
+    assert B.stride(1) == r + 8 and not B.is_contiguous()
     y, h = ssm_scan(x, dt, A, B, C, D, return_final=True)
     y2, h2 = ssm_scan(x, dt, A, B.contiguous(), C.contiguous(), D,
                       return_final=True)
     torch.testing.assert_close(y, y2)
     torch.testing.assert_close(h, h2)
+
+
+def test_scan_phase_clock_marks_fit_the_kernel_source():
+    """``tools/scan_phase_clocks.py`` edits a copy of ``csrc/ssm_scan.cu``
+    at fixed anchors: each must still appear once in the source, and every
+    phase gets its mark."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "scan_phase_clocks.py"
+    spec = importlib.util.spec_from_file_location("scan_phase_clocks", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = tool.instrumented_source()
+    for p in range(len(tool.PHASES)):
+        assert f"SCAN_MARK({p})" in src
+    assert "scan_phase_read" in src
 
 
 @pytest.mark.parametrize("bad", ["A", "B", "D", "ndim"])
