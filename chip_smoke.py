@@ -42,7 +42,23 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
    32 launches of each kernel, all in the prefill.
 9. Profile one full-width hymba prefill, and 4 decode steps after it, and
    print device time by kernel.
-10. Print the card's name and power limit, one ``{"kernels": [...]}`` line,
+10. Open-loop serving at full width (``MasterScheduler.run_open``): two
+    tenants shaped like ``benchmarks/load_slo.py``'s (1024 x 16384 with
+    target 3e-1 and deadline 3 s, 2048 x 32768 with 1e-2 and 8 s), L-SAC
+    (ortho) K=8, N=24, EDF batches of 4, a queue of 6 that sheds, expired
+    requests dropped, Poisson arrivals at 3x the closed-loop capacity on
+    the virtual clock; the device backend held against the ``sim`` run of
+    the same workload (same sheds, drops and batches; a differing target
+    crossing only within 1e-4 of the target; exact states <= 1e-3).
+11. ``repro_torch.launch.serve --autotune --per-class`` at 2048 x 32768 for
+    16 requests on the device backend and, in a second process started
+    before phase 10, on ``sim``: the same retune history, at least one
+    retune.
+12. ``SimulationEngine(backend="torch")`` on the card at the paper's Fig. 3a
+    problem, every code of ``paper_fig3a_codes``, both norms, 100 trials,
+    against the numpy backend (1e-10 relative plus twice the float64
+    rounding bound of the evaluation); both times.
+13. Print the card's name and power limit, one ``{"kernels": [...]}`` line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -53,6 +69,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -122,6 +139,7 @@ SFU_PER_SM_CLOCK = 16        # exp results per SM per clock (compute 9.0)
 # falcon-mamba-7b's channels (src/repro_torch/configs/falcon_mamba_7b.py)
 # and the length the scan's check against the plain loop is cut to there
 FALCON_D_INNER, SCAN_CUT_L = 8192, 512
+CARD = ""                    # nvidia-smi's name and power limit, set by main
 
 
 def log(msg: str) -> None:
@@ -970,6 +988,386 @@ def phase_breakdown() -> dict:
                         "of 4, profiled): loop")
 
 
+# Open-loop serving at the paper job's width: the two tenants of
+# benchmarks/load_slo.py (an interactive class with a loose accuracy target
+# and a tight deadline, a batch class the other way round), L-SAC (ortho)
+# K = 8, N = 24, 15 % stragglers, EDF batches of 4 behind a queue of 6 that
+# sheds, expired requests dropped, Poisson arrivals at 3x the closed-loop
+# capacity (measured on the virtual clock as load_slo.closed_loop_capacity
+# does, from OPEN_CAPACITY_N requests all arriving at 0).
+OPEN_TENANTS = (("interactive", 1024, 16384, 3e-1, 3.0, 2.0),
+                ("batch", 2048, 32768, 1e-2, 8.0, 1.0))
+OPEN_SEED, OPEN_OVERLOAD, OPEN_ARRIVALS, OPEN_CAPACITY_N = 29, 3.0, 24, 8
+OPEN_DEADLINES, OPEN_POOL = (0.6, 1.2, 2.4), 2
+# A target crossing may differ between the float32 card run and the float64
+# oracle only where the error at that tick lies this close to the target.
+CROSSING_TOL = 1e-4
+OPEN_TARGETS = {t[0]: t[3] for t in OPEN_TENANTS}
+AUTOTUNE = {"rows": 2048, "inner": 32768, "K": 8, "N": 24, "requests": 16,
+            "window": 4, "target": 1e-2}
+AUTOTUNE_ARGS = ["--rows", str(AUTOTUNE["rows"]), "--inner",
+                 str(AUTOTUNE["inner"]), "--K", str(AUTOTUNE["K"]), "--N",
+                 str(AUTOTUNE["N"]), "--device", "cuda", "--autotune",
+                 "--per-class", "--target-error", str(AUTOTUNE["target"]),
+                 "--profile-window", str(AUTOTUNE["window"]), "--requests",
+                 str(AUTOTUNE["requests"]), "--json"]
+# The engine at the paper's Fig. 3a problem, as benchmarks/engine_speedup.py
+ENGINE_TRIALS, ENGINE_SEEDS = 100, (5, 6)
+
+
+def _zero_launches() -> None:
+    from repro_torch.kernels import coded_matmul, poly_encode
+    torch.cuda.synchronize()
+    coded_matmul.launches = 0
+    poly_encode.launches = 0
+
+
+def _read_launches() -> dict:
+    from repro_torch.kernels import coded_matmul, poly_encode
+    return {"coded_matmul": coded_matmul.launches,
+            "poly_encode": poly_encode.launches}
+
+
+def _open_sched(backend: str, policy: bool):
+    from repro_torch.launch.serve import CODES
+    from repro_torch.serving import MasterScheduler, ServeConfig, make_backend
+    cfg = ServeConfig(deadlines=OPEN_DEADLINES, batch_size=4, seed=OPEN_SEED,
+                      queue_policy="edf" if policy else "fifo",
+                      queue_limit=6 if policy else None,
+                      shed_expired=policy, stream=policy)
+    return MasterScheduler(CODES["lsac_ortho"].build(8, 24),
+                           make_backend(backend, device="cuda",
+                                        straggler_frac=0.15), cfg)
+
+
+def _crossing_error(res, t_cross):
+    """The estimate's error at the completion event at global ``t_cross``
+    (a ``stream`` answer), or ``None``."""
+    for a in res.answers:
+        if a.kind == "event" and a.rel_err is not None \
+                and abs(res.t_dispatch + a.t - t_cross) <= 1e-12:
+            return a.rel_err
+    return None
+
+
+def phase_open_loop() -> dict:
+    """``MasterScheduler.run_open`` at full width on the device backend,
+    held against the port's own ``sim`` run (float64 products) of the same
+    workload and seed."""
+    from dataclasses import replace
+
+    from repro_torch.serving import TenantSpec, build_workload, summarize_load
+    tenants = [TenantSpec(n, rows=r, inner=z, target_error=e, deadline=d,
+                          weight=w) for n, r, z, e, d, w in OPEN_TENANTS]
+    t0 = time.perf_counter()
+    probe = build_workload(tenants, rate=1.0, horizon=float(OPEN_CAPACITY_N),
+                           seed=OPEN_SEED, operand_pool=OPEN_POOL)
+    probe = [replace(r, arrival=0.0) for r in probe[:OPEN_CAPACITY_N]]
+    res = _open_sched("device", False).run_open(probe)
+    capacity = len(res) / max(r.t_done for r in res)
+    rate = OPEN_OVERLOAD * capacity
+    horizon = OPEN_ARRIVALS / rate
+    wl = build_workload(tenants, rate=rate, horizon=horizon,
+                        seed=OPEN_SEED + 1, operand_pool=OPEN_POOL)
+    del probe, res
+    setup_s = time.perf_counter() - t0
+    runs = {}
+    for name in ("device", "sim"):
+        sched = _open_sched(name, True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        results = sched.run_open(wl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        rep = summarize_load(sched, wl, results, horizon=horizon).to_dict()
+        runs[name] = {"sched": sched, "results": results, "wall_s": wall,
+                      "launches": launches, "report": rep,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+    dev, sim = runs["device"], runs["sim"]
+    R = dev["sched"].code.recovery_threshold
+    if dev["launches"]["coded_matmul"] <= 0 \
+            or dev["launches"]["poly_encode"] <= 0:
+        fail(f"open loop: kernels not launched {dev['launches']}")
+    if any(sim["launches"].values()):
+        fail(f"open loop: the sim run launched kernels {sim['launches']}")
+    # target crossings first: a crossing that differs makes the two
+    # schedules part ways, and is allowed only at a tick whose error lies
+    # within CROSSING_TOL of the target
+    by_id = {r.req_id: r for r in sim["results"]}
+    diverge, crossings = math.inf, []
+    for r in dev["results"]:
+        s = by_id.get(r.req_id)
+        if s is None or r.t_target == s.t_target or r.dropped:
+            continue
+        t_cross = min(t for t in (r.t_target, s.t_target) if t is not None)
+        errs = (_crossing_error(r, t_cross), _crossing_error(s, t_cross))
+        target = OPEN_TARGETS[r.tenant]
+        crossings.append({"req_id": r.req_id, "t": t_cross, "target": target,
+                          "err_device": errs[0], "err_sim": errs[1]})
+        log(f"  open loop: request {r.req_id} crosses its target {target} "
+            f"at different ticks; errors at t={t_cross:.6f}: device "
+            f"{errs[0]}, sim {errs[1]}")
+        if any(e is None or abs(e - target) > CROSSING_TOL * target
+               for e in errs):
+            fail(f"open loop: request {r.req_id}'s target crossing differs "
+                 f"from the oracle's by more than {CROSSING_TOL} of the "
+                 "target")
+        diverge = min(diverge, t_cross)
+
+    def schedule(run):
+        shed = [x for x in run["sched"].shed if x[1] <= diverge]
+        drops = [(r.req_id, r.tenant) for r in run["results"]
+                 if r.dropped and r.t_done <= diverge]
+        batches = {}
+        for r in run["results"]:
+            if r.batch is not None and r.t_dispatch <= diverge:
+                batches.setdefault(r.batch, []).append(r.req_id)
+        return shed, drops, batches
+
+    for what, a, b in zip(("shed list", "drops", "batch members"),
+                          schedule(dev), schedule(sim)):
+        if a != b:
+            fail(f"open loop: {what} differ from the sim run: {a} vs {b}")
+    exact = [a.rel_err for r in dev["results"] for a in r.answers
+             if a.m >= R and a.rel_err is not None]
+    errs = [a.rel_err for r in dev["results"] for a in r.answers
+            if a.rel_err is not None]
+    if not errs or not all(math.isfinite(e) for e in errs):
+        fail("open loop: missing or non-finite errors")
+    if exact and max(exact) > 1e-3:
+        fail(f"open loop: exact-state error {max(exact):.3e} (limit 1e-3)")
+    out = {"capacity_rps": capacity, "offered_rps": rate,
+           "horizon": horizon, "arrivals": len(wl), "setup_s": setup_s,
+           "crossings_differing": crossings,
+           "exact_max_err": max(exact) if exact else None}
+    for name, run in runs.items():
+        rep = run["report"]
+        out[name] = {"wall_s": run["wall_s"], "launches": run["launches"],
+                     "peak_bytes": run["peak_bytes"],
+                     "batches": len({r.batch for r in run["results"]
+                                     if r.batch is not None}),
+                     "report": rep}
+        log(f"open loop ({name}): {len(wl)} arrivals at {rate:.4f} req/s "
+            f"(3x capacity {capacity:.4f}) over {horizon:.3f} s virtual; "
+            f"served {rep['served']}, shed {rep['shed']}, dropped "
+            f"{rep['dropped']}; serve loop {run['wall_s']:.2f} s wall "
+            f"({CARD}); "
+            f"launches {run['launches']}; peak device memory "
+            f"{run['peak_bytes'] / 2**30:.2f} GiB")
+        for tname, t in sorted(rep["tenants"].items()):
+            log(f"  {name} {tname}: p99 time-to-target {t['p99_tta']} s, "
+                f"goodput {t['goodput']:.4f} SLO hits/s (virtual clock), "
+                f"shed {t['shed']}, dropped {t['dropped']}")
+    log(f"open loop: device == sim schedule; exact-state max error "
+        f"{out['exact_max_err']}")
+    out["breakdown"] = _open_loop_breakdown(wl)
+    return out
+
+
+def _open_loop_breakdown(wl) -> dict:
+    """Device time by kernel over the device arm served again under
+    ``torch.profiler`` (the same workload and seed)."""
+    from torch.profiler import ProfilerActivity, profile
+    sched = _open_sched("device", True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.run_open(wl)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = _device_rows(prof, wall_ms, f"breakdown (open loop, device arm, "
+                       f"profiled; {CARD}): loop")
+    host = sorted(((e.key, e.count, e.self_cpu_time_total / 1e3)
+                   for e in prof.key_averages()),
+                  key=lambda r: -r[2])[:6]
+    for name, count, ms in host:
+        log(f"  host {ms:9.2f} ms  x{count:<5d} {name[:80]}")
+    out["host_top"] = [{"name": n, "count": c, "ms": ms}
+                       for n, c, ms in host]
+    return out
+
+
+def start_autotune_sim() -> subprocess.Popen:
+    """The ``--backend sim`` twin of the autotune run, in a second process:
+    drawing the 16 full-width operand pairs takes most of a run's time on
+    the host, so the twin draws while this process works."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *AUTOTUNE_ARGS,
+         "--backend", "sim"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def phase_autotune(sim_twin: subprocess.Popen, t_twin: float) -> dict:
+    """``repro_torch.launch.serve --autotune --per-class`` at full width on
+    the device backend, against the same command with ``--backend sim``
+    (``sim_twin``, started at ``t_twin``): the same retune history."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    rep = _serve(AUTOTUNE_ARGS + ["--backend", "device"])
+    total = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    out_text, err_text = sim_twin.communicate(timeout=900)
+    twin_total = time.perf_counter() - t_twin
+    if sim_twin.returncode != 0:
+        fail(f"autotune: the sim run exited {sim_twin.returncode}: "
+             f"{err_text[-2000:]}")
+    sim = json.loads(out_text.strip().splitlines()[-1])
+    retunes = rep["autotune"]["retunes"]
+    if not retunes:
+        fail("autotune: no retune fired")
+    if retunes != sim["autotune"]["retunes"]:
+        fail(f"autotune: retune history differs from the sim run: "
+             f"{retunes} vs {sim['autotune']['retunes']}")
+    if launches["coded_matmul"] <= 0 or launches["poly_encode"] <= 0:
+        fail(f"autotune: kernels not launched {launches}")
+    errs = [a["rel_err"] for r in rep["requests"] for a in r["answers"]
+            if a["rel_err"] is not None]
+    if not errs or not all(math.isfinite(e) for e in errs):
+        fail("autotune: missing or non-finite errors")
+    switched = [(ev["n_seen"], ev["cls"], ev["pick"]) for ev in retunes
+                if ev["switched"]]
+    out = {"retunes": retunes, "switched_to": switched,
+           "device": {"wall_s": rep["summary"]["wall_s"], "total_s": total,
+                      "launches": launches, "peak_bytes": peak},
+           "sim": {"wall_s": sim["summary"]["wall_s"],
+                   "total_s": twin_total}}
+    log(f"autotune (device): {rep['summary']['requests']} requests, serve "
+        f"loop {rep['summary']['wall_s']:.2f} s ({total:.1f} s with operand "
+        f"drawing; {CARD}); launches {launches}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"autotune (sim, second process): serve loop "
+        f"{sim['summary']['wall_s']:.2f} s ({twin_total:.1f} s from its "
+        f"start; {CARD})")
+    for n, cls, pick in switched:
+        log(f"  retune @{n} [{cls}]: switch -> {pick}")
+    log(f"autotune: {len(retunes)} retunes, the same on device and sim")
+    out["policy_s"] = _autotune_policy_seconds(retunes)
+    log(f"autotune: the policy's refits and sweeps take "
+        f"{out['policy_s']:.2f} s of the device run's "
+        f"{rep['summary']['wall_s']:.2f} s serve loop (host; {CARD})")
+    return out
+
+
+def _autotune_policy_seconds(retunes) -> float:
+    """Host seconds of the autotune run's refits and sweeps: the CLI's
+    policy fed again the latency rows its scheduler drew (seed 0, one row
+    per batch of 4, every shard done), timed, and held to the same retune
+    history."""
+    import numpy as np
+
+    from repro_torch.core import shifted_exp_times
+    from repro_torch.design import AdaptivePolicy, CodeSpace, RequestClass
+    at = AUTOTUNE
+    policy = AdaptivePolicy(CodeSpace(at["K"], at["N"], beta_modes=("one",)),
+                            deadline=1.1, target_error=at["target"],
+                            window=at["window"], seed=0, per_class=True)
+    cls = RequestClass(rows=at["rows"], inner=at["inner"], dtype="f8")
+    N = at["N"]
+    rng = np.random.default_rng(0)
+    spent = 0.0
+    for _ in range(at["requests"] // 4):
+        row = shifted_exp_times(rng, N, straggler_frac=0.15)
+        t0 = time.perf_counter()
+        policy.observe(row, n_requests=4, cls=cls)
+        policy.maybe_retune(cls)
+        spent += time.perf_counter() - t0
+    if [ev.point.spec.label() for ev in policy.history] != \
+            [ev["pick"] for ev in retunes]:
+        fail("autotune: the policy fed the run's latency rows picks "
+             "differently; its time would not be the run's")
+    return spent
+
+
+def _trial_groups(factory, trials: int, seed: int):
+    """``average_curves``' draws: one code and one completion order per
+    trial, grouped by code identity (one engine per group)."""
+    import numpy as np
+
+    from repro_torch.core import simulate_completion
+    rng = np.random.default_rng(seed)
+    groups = {}
+    for _ in range(trials):
+        code = factory(rng)
+        order = simulate_completion(rng, code.N).order
+        groups.setdefault(code.cache_key(), (code, []))[1].append(order)
+    products = "cross" if len(groups) > 4 else "direct"
+    return [(c, np.stack(o)) for c, o in groups.values()], products
+
+
+def phase_engine() -> dict:
+    """``SimulationEngine(backend="torch")`` on the card at the paper's
+    Fig. 3a problem for every code of ``paper_fig3a_codes`` in both norms,
+    against the numpy backend: 1e-10 relative plus twice the float64
+    rounding bound of the evaluation (``rounding_bound``) on every finite
+    entry of every trial's curves."""
+    import numpy as np
+
+    from repro_torch.core import (ProblemContext, SimulationEngine,
+                                  paper_fig3a_codes, random_problem)
+    A, B = random_problem(np.random.default_rng(ENGINE_SEEDS[0]))
+    problem = ProblemContext.build(A, B, 8)
+    out = {}
+    for name, factory in paper_fig3a_codes().items():
+        groups, products = _trial_groups(factory, ENGINE_TRIALS,
+                                         ENGINE_SEEDS[1])
+        t0 = time.perf_counter()
+        engines = [(SimulationEngine(code, A, B, products=products,
+                                     problem=problem), orders)
+                   for code, orders in groups]
+        row = {"engines": len(engines), "products": products,
+               "init_s": time.perf_counter() - t0}
+        for norms in ("exact", "gram"):
+            cur, times = {}, {}
+            for backend in ("numpy", "torch"):
+                evs = [(e.variant(backend=backend, norms=norms,
+                                  device="cuda"), o) for e, o in engines]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cur[backend] = [ev.run_batch(o) for ev, o in evs]
+                times[backend] = time.perf_counter() - t0
+            worst, strict, n = 0.0, 0, 0
+            for (e, o), a, b in zip(engines, cur["numpy"], cur["torch"]):
+                bound = e.variant(norms=norms).rounding_bound(o)
+                for attr in ("total", "approx", "comp"):
+                    r, g, bd = (getattr(c, attr) for c in (a, b, bound))
+                    if not np.array_equal(np.isnan(r), np.isnan(g)):
+                        fail(f"engine {name}/{norms}/{attr}: defined "
+                             "entries differ")
+                    ok = ~np.isnan(r)
+                    d = np.abs(g[ok] - r[ok])
+                    tol = 1e-10 * np.abs(r[ok]) + 2 * bd[ok]
+                    if np.any(d > tol):
+                        fail(f"engine {name}/{norms}/{attr}: torch differs "
+                             f"from numpy by {d.max():.3e} beyond the "
+                             "bound")
+                    rel = d / np.maximum(np.abs(r[ok]), 1e-300)
+                    strict += int((rel <= 1e-10).sum())
+                    n += int(ok.sum())
+                    worst = max(worst, float((d / tol).max(initial=0.0)))
+            row[norms] = {"numpy_s": times["numpy"],
+                          "torch_s": times["torch"],
+                          "entries": n, "within_1e-10_rel": strict,
+                          "worst_over_tol": worst}
+            log(f"engine {name} {norms}: numpy {times['numpy']:.3f} s, "
+                f"torch on the card {times['torch']:.3f} s ({CARD}; "
+                f"{len(engines)} engines, {products} products); "
+                f"{strict}/{n} entries within 1e-10 relative, the rest "
+                f"within the rounding bound (worst {worst:.2e} of it)")
+        out[name] = row
+    return out
+
+
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -985,8 +1383,9 @@ def main(argv=None) -> int:
               "src/repro_torch next to this script)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    global CARD
     t_start = time.perf_counter()
-    card = card_line()
+    card = CARD = card_line()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1005,6 +1404,19 @@ def main(argv=None) -> int:
     lm, model, prompt = phase_full_lm(dev)
     lm_breakdown = phase_lm_breakdown(model, prompt)
     del model, prompt
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    sim_twin = start_autotune_sim()
+    try:
+        open_loop = phase_open_loop()
+        autotune = phase_autotune(sim_twin, t_new)
+        engine = phase_engine()
+    finally:
+        if sim_twin.poll() is None:
+            sim_twin.kill()
+            sim_twin.wait()
+    log(f"open loop, autotune and engine phases: "
+        f"{time.perf_counter() - t_new:.1f} s ({card})")
 
     # The exact L-SAC fit reads the first R completions.  Batch 1's
     # completion order gives a well-conditioned fit: its exact state is held
@@ -1026,7 +1438,9 @@ def main(argv=None) -> int:
 
     log(f"done in {time.perf_counter() - t_start:.1f} s")
 
-    runs = {"lsac_ortho": lsac, "gsac_k1_5": gsac}
+    runs = {"lsac_ortho": lsac, "gsac_k1_5": gsac,
+            "open_loop": open_loop["device"],
+            "autotune": autotune["device"]}
     mm32, enc_main = mm["float32"], enc["batch_rows24"]
     kernels = [
         {"name": "coded_matmul", "status": "ported", "route": "cuda",
@@ -1081,7 +1495,8 @@ def main(argv=None) -> int:
              "small_serve": small, "serve": runs, "breakdown": breakdown,
              "flash_attention": flash, "ssm_scan": scan,
              "small_lm": small_lm, "lm": lm, "lm_breakdown": lm_breakdown,
-             "kernels": kernels},
+             "open_loop": open_loop, "autotune": autotune,
+             "engine": engine, "kernels": kernels},
             indent=2))
     print(card)
     print(json.dumps({"kernels": kernels, "not_ported": []}))

@@ -1,5 +1,5 @@
 """Host float64 control of the coded matmul: codes, decode solves, β rules,
-straggler models and the block split.
+straggler models, the block split and the Monte-Carlo engine.
 
 A copy of the reference package's pure-numpy ``core`` modules (the port
 imports nothing from the reference), plus a tensor ``split_contraction``
@@ -19,11 +19,15 @@ from .poly import (ChebyshevBasis, LagrangeBasis, MappedChebyshevBasis,
                    MonomialBasis, chebyshev_roots)
 from .registry import (CODE_NAMES, make_code, make_code_from_spec,
                        paper_fig3a_codes, restrict_code)
+from .simulate import (BatchErrorCurves, ErrorCurves, ProblemContext,
+                       SimulationEngine, average_curves,
+                       average_curves_reference, correlated_problem,
+                       random_problem, run_trace, run_trace_reference)
 from .solve import (condition_number, extraction_weights,
                     extraction_weights_batch, fit_coefficients)
 from .straggler import (LATENCY_MODELS, CompletionBatch, CompletionTrace,
                         sample_times, shifted_exp_times, simulate_completion,
-                        validate_latency_kw)
+                        simulate_completion_batch, validate_latency_kw)
 
 __all__ = [
     "CDCCode", "DecodeInfo", "MatDotCode", "EpsApproxMatDotCode",
@@ -34,8 +38,12 @@ __all__ = [
     "thm1_moments", "thm2_beta", "thm2_gammas", "group_beta", "layer_beta",
     "eq5_beta", "extraction_weights", "extraction_weights_batch",
     "fit_coefficients", "condition_number", "CompletionTrace",
-    "CompletionBatch", "simulate_completion", "LATENCY_MODELS",
+    "CompletionBatch", "simulate_completion", "simulate_completion_batch",
+    "LATENCY_MODELS",
     "sample_times", "shifted_exp_times", "validate_latency_kw",
     "chebyshev_roots", "MonomialBasis", "ChebyshevBasis",
-    "MappedChebyshevBasis", "LagrangeBasis",
+    "MappedChebyshevBasis", "LagrangeBasis", "ErrorCurves",
+    "BatchErrorCurves", "ProblemContext", "SimulationEngine", "run_trace",
+    "average_curves", "run_trace_reference", "average_curves_reference",
+    "random_problem", "correlated_problem",
 ]

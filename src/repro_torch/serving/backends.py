@@ -9,9 +9,11 @@ backends satisfy the contract through :class:`SyntheticDispatch` —
 products are computed up front and one latency draw is unrolled into a
 time-ordered event sequence:
 
-* :class:`SimulatedBackend` — host numpy float64 products (a copy of the
-  reference's encode and einsum: the oracle) + shifted-exponential
-  latencies; the products are handed to the scheduler on its device.
+* :class:`SimulatedBackend` — float64 products (the oracle) +
+  shifted-exponential latencies: on a CPU device the reference's numpy
+  encode and einsum, bit for bit; on the card the same contractions in
+  torch float64 / complex128, so that a full-width oracle run takes
+  seconds instead of hours.
 * :class:`TorchDeviceBackend` — encode and worker products on the device
   through the hand-written kernels (:mod:`repro_torch.kernels`); complex
   evaluation points take the four-GEMM path.  Latencies are drawn as the
@@ -175,19 +177,24 @@ def _gen_tensor(G: np.ndarray, device) -> torch.Tensor:
 
 
 class SimulatedBackend(ExecutionBackend):
-    """Host numpy float64 products; simulated worker latencies (§V).
+    """Float64 products; simulated worker latencies (§V).
 
-    The float64 oracle of the port: the encode and the worker products are
-    the reference's numpy einsums, computed on the host; the products are
-    then handed over on :attr:`device`.  The keywords configure the
-    shifted-exponential latency model.
+    The float64 oracle of the port.  On a CPU :attr:`device` the encode and
+    the worker products are the reference's numpy einsums (bit-identical);
+    on a CUDA device they are the same contractions in torch float64 /
+    complex128 on the card (:meth:`_products_torch`; float64 rounding, a
+    different summation order).  ``model`` names the latency model
+    (:data:`~repro_torch.core.straggler.LATENCY_MODELS`, shifted
+    exponential by default); the remaining keywords configure it.
     """
 
     name = "sim"
 
-    def __init__(self, *, device=None, **latency_kw):
+    def __init__(self, *, device=None, model: str = "shifted_exp",
+                 **latency_kw):
         super().__init__(device)
-        validate_latency_kw("shifted_exp", latency_kw)
+        validate_latency_kw(model, latency_kw)
+        self.model = model
         self.latency_kw = latency_kw
 
     @staticmethod
@@ -205,13 +212,42 @@ class SimulatedBackend(ExecutionBackend):
 
     def compute_products(self, code: CDCCode, As, Bs,
                          n_shards: int | None = None) -> torch.Tensor:
+        if self.device.type != "cpu":
+            return self._products_torch(code, As, Bs, n_shards, self.device)
         E_A, E_B = self._encode_host(code, As, Bs, n_shards)
         P = np.einsum("rnij,rnjl->rnil", E_A, E_B)
         return torch.from_numpy(P).to(self.device)
 
+    @staticmethod
+    def _products_torch(code: CDCCode, As, Bs, n_shards: int | None,
+                        device) -> torch.Tensor:
+        """The encode and products of :meth:`_encode_host` in torch float64
+        (complex128 for complex points) on ``device``, one request at a
+        time so that the encoded operands of one request are live at
+        once."""
+        G_A, G_B = ExecutionBackend._generators(code, n_shards)
+        cplx = np.iscomplexobj(G_A) or np.iscomplexobj(G_B)
+        dtype = torch.complex128 if cplx else torch.float64
+        gA = torch.as_tensor(G_A, dtype=dtype, device=device)
+        gB = torch.as_tensor(G_B, dtype=dtype, device=device)
+        out = None
+        for r, (A, B) in enumerate(zip(As, Bs)):
+            A = torch.as_tensor(A, device=device).to(dtype)
+            B = torch.as_tensor(B, device=device).to(dtype)
+            A_blocks, B_blocks = split_contraction(A, B, code.K)
+            E_A = torch.einsum("nk,kij->nij", gA, A_blocks)
+            E_B = torch.einsum("nk,kij->nij", gB, B_blocks)
+            P = torch.bmm(E_A, E_B)
+            if out is None:
+                out = torch.empty((len(As),) + tuple(P.shape), dtype=dtype,
+                                  device=device)
+            out[r] = P
+            del A, B, A_blocks, B_blocks, E_A, E_B, P
+        return out
+
     def draw_latencies(self, rng: np.random.Generator,
                        N: int) -> np.ndarray:
-        return sample_times(rng, N, model="shifted_exp", **self.latency_kw)
+        return sample_times(rng, N, model=self.model, **self.latency_kw)
 
 
 def _host(x) -> np.ndarray:

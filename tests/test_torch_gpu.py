@@ -489,3 +489,132 @@ def test_lm_wrappers_reject_bad_dtype(cuda):
                  torch.zeros(8, device=cuda))
     with pytest.raises(ValueError):              # no state at all
         ssm_scan(x, x, A[:, :0], x[..., :0], x[..., :0], A[:, 0])
+
+
+# ------------------------------------------- open loop and engine on card
+
+def _open_loop_pair(device):
+    from repro_torch.core import LayerSACCode
+    from repro_torch.serving import (MasterScheduler, ServeConfig,
+                                     SimulatedBackend, TenantSpec,
+                                     TorchDeviceBackend, build_workload)
+    tenants = [TenantSpec("interactive", rows=96, inner=512,
+                          target_error=3e-1, deadline=3.0, weight=2.0),
+               TenantSpec("batch", rows=128, inner=1024, target_error=1e-2,
+                          deadline=8.0, weight=1.0)]
+    wl = build_workload(tenants, rate=3.0, horizon=10.0, seed=30)
+    code = LayerSACCode(8, 24, base="ortho", eps=6.25e-3)
+    out = []
+    for backend in (TorchDeviceBackend(straggler_frac=0.15, device=device),
+                    SimulatedBackend(straggler_frac=0.15, device="cpu")):
+        cfg = ServeConfig(deadlines=(0.6, 1.2, 2.4), batch_size=4, seed=29,
+                          queue_policy="edf", queue_limit=6,
+                          shed_expired=True, stream=True)
+        sched = MasterScheduler(code, backend, cfg)
+        out.append((sched, sched.run_open(wl)))
+    return out
+
+
+def test_run_open_on_the_card_matches_sim(cuda):
+    """The open loop through the kernels on the card against the float64
+    oracle on the CPU: the same sheds, drops, batches and target crossings;
+    on the approximate layers the estimates agree to 1e-5·‖C‖ (float32
+    products).  An exact state's fit can amplify the float32 rounding by
+    its conditioning, which depends on the completion order (the
+    reference's float32 device path does the same), so exact states are
+    held below the tightest tenant target, 1e-2."""
+    before = (coded_matmul.launches, poly_encode.launches)
+    (dev, rd), (sim, rs) = _open_loop_pair(cuda)
+    R = dev.code.recovery_threshold
+    assert coded_matmul.launches > before[0]
+    assert poly_encode.launches > before[1]
+    assert dev.shed == sim.shed
+    key = [(r.req_id, r.batch, r.tenant, r.dropped, r.t_dispatch,
+            r.t_target, r.t_done, r.slo_ok) for r in rd]
+    assert key == [(r.req_id, r.batch, r.tenant, r.dropped, r.t_dispatch,
+                    r.t_target, r.t_done, r.slo_ok) for r in rs]
+    assert any(r.t_target is not None for r in rd)
+    for a, b in zip(rd, rs):
+        for x, y in zip(a.answers, b.answers, strict=True):
+            assert (x.t, x.m, x.kind) == (y.t, y.m, y.kind)
+            if y.rel_err is None:
+                continue
+            if x.m < R:
+                assert abs(np.sqrt(x.rel_err) - np.sqrt(y.rel_err)) <= 1e-5
+            else:
+                assert x.rel_err <= 1e-2
+
+
+@pytest.mark.parametrize("name", ["layer_sac", "group_sac", "orthomatdot"])
+@pytest.mark.parametrize("norms", ["exact", "gram"])
+def test_engine_torch_backend_on_the_card_matches_numpy(cuda, name, norms):
+    """``SimulationEngine(backend="torch")`` on the card against the numpy
+    backend: 1e-10 relative plus twice the float64 rounding bound."""
+    from repro_torch.core import (GroupSACCode, LayerSACCode,
+                                  OrthoMatDotCode, SimulationEngine,
+                                  simulate_completion_batch, x_complex)
+    code = {"layer_sac": LayerSACCode(4, 12, base="ortho", eps=1e-2),
+            "group_sac": GroupSACCode(4, 12, x_complex(12, 0.1), [2, 2]),
+            "orthomatdot": OrthoMatDotCode(4, 12)}[name]
+    rng = np.random.default_rng(2)
+    A, B = rng.standard_normal((40, 320)), rng.standard_normal((320, 30))
+    batch = simulate_completion_batch(np.random.default_rng(4), 12, 16)
+    ref = SimulationEngine(code, A, B, norms=norms)
+    got = SimulationEngine(code, A, B, norms=norms, backend="torch",
+                           device=cuda).run_batch(batch)
+    want, bound = ref.run_batch(batch), ref.rounding_bound(batch)
+    for attr in ("total", "approx", "comp"):
+        r, e, b = (getattr(c, attr) for c in (want, got, bound))
+        assert np.array_equal(np.isnan(r), np.isnan(e))
+        ok = ~np.isnan(r)
+        assert np.all(np.abs(e[ok] - r[ok])
+                      <= 1e-10 * np.abs(r[ok]) + 2 * b[ok]), attr
+
+
+@pytest.mark.parametrize("complex_points", [False, True])
+def test_sim_backend_on_the_card_matches_the_cpu_oracle(cuda,
+                                                        complex_points):
+    from repro_torch.core import GroupSACCode, LayerSACCode, x_complex
+    from repro_torch.serving import SimulatedBackend
+    code = GroupSACCode(4, 12, x_complex(12, 0.1), [2, 2]) \
+        if complex_points else LayerSACCode(4, 12, base="ortho", eps=1e-2)
+    rng = np.random.default_rng(8)
+    As = [rng.standard_normal((30, 64)) for _ in range(3)]
+    Bs = [rng.standard_normal((64, 20)) for _ in range(3)]
+    want = SimulatedBackend(device="cpu").compute_products(code, As, Bs)
+    got = SimulatedBackend(device=cuda).compute_products(code, As, Bs)
+    assert got.device.type == "cuda" and got.dtype == want.dtype
+    got = got.cpu().numpy()
+    want = want.numpy()
+    assert np.linalg.norm(got - want) <= 1e-13 * np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--per-class", "--class-cache", "8"],
+    ["--cost-aware", "--N-options", "16,24", "--drift", "ks",
+     "--fleet", "20"],
+], ids=["per-class", "cost-aware-drift-fleet"])
+def test_serve_cli_tune_and_observability_flags_on_the_card(cuda, extra,
+                                                            tmp_path):
+    """The autotuned serve with the tune, fleet, cache and observability
+    flags on the device backend launches the kernels and writes what the
+    flags ask for."""
+    from repro_torch.launch.serve import build_parser, run_serve
+    before = (coded_matmul.launches, poly_encode.launches)
+    argv = ["--rows", "64", "--inner", "512", "--requests", "8",
+            "--code", "lsac_ortho", "--autotune", "--profile-window", "4",
+            "--profile-state", str(tmp_path / "state.json"),
+            "--metrics-out", str(tmp_path / "m.json"),
+            "--trace-out", str(tmp_path / "t.json"),
+            "--flight-recorder", str(tmp_path / "f.json"),
+            "--sample-interval", "0.5", "--metrics-port", "0",
+            "--burn-alerts", *extra]
+    rep = run_serve(build_parser().parse_args(argv)).to_dict()
+    assert coded_matmul.launches > before[0]
+    assert poly_encode.launches > before[1]
+    assert rep["autotune"]["retunes"] and rep["config"]["device"] == "cuda"
+    assert rep["observability"]["metrics_port"] > 0
+    for name in ("state.json", "m.json", "t.json"):
+        assert (tmp_path / name).exists()
+    again = run_serve(build_parser().parse_args(argv)).to_dict()
+    assert again["autotune"]["restored"]

@@ -16,7 +16,9 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.kernels",
            "repro_torch.serving", "repro_torch.launch.serve",
            "repro_torch.convert", "repro_torch.cluster",
            "repro_torch.models", "repro_torch.runtime.steps",
-           "repro_torch.configs"]
+           "repro_torch.configs", "repro_torch.core.simulate",
+           "repro_torch.design", "repro_torch.obs", "repro_torch.ioutil",
+           "repro_torch.serving.loadgen"]
 
 
 def test_port_import_loads_no_jax_and_no_reference():
@@ -33,6 +35,10 @@ def test_port_import_loads_no_jax_and_no_reference():
     assert not bad, bad
     assert "repro_torch.serving.master" in mods
     assert "repro_torch.models.lm" in mods
+    for m in ("repro_torch.design.policy", "repro_torch.design.pareto",
+              "repro_torch.design.state", "repro_torch.obs.exporter",
+              "repro_torch.obs.slo", "repro_torch.serving.cache"):
+        assert m in mods, m
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(PORT).as_posix()
