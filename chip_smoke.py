@@ -20,7 +20,9 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
 3. A small serve on the card against the same serve with the plain
    versions on the CPU: same answer stream, agreeing errors.
 4. Serve at full width through ``run_serve`` (2048 x 32768 operands, K=8,
-   N=24, batches of 4): L-SAC (ortho) for 8 requests, and the CLI default
+   N=24, batches of 4): L-SAC (ortho) for 8 requests (operands drawn from
+   the CLI's seed while phase 1 builds; phase 13 serves them too), and the
+   CLI default
    G-SAC [5, 3] (complex points, the four-GEMM path) for 4.  The kernels'
    launch counts are zeroed just before each run and must grow in it.
 5. Profile one full-width L-SAC batch and print device time by kernel.
@@ -58,7 +60,31 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
     problem, every code of ``paper_fig3a_codes``, both norms, 100 trials,
     against the numpy backend (1e-10 relative plus twice the float64
     rounding bound of the evaluation); both times.
-13. Print the card's name and power limit, one ``{"kernels": [...]}`` line,
+13. The worker-process cluster (``--backend cluster --compute device``):
+    phase 4's L-SAC job (2048 x 32768, K=8, N=24, 8 requests, batches of 4
+    when ``/dev/shm`` holds two batches' float32 stacks) on 24 worker
+    processes, each computing its shard in the ``coded_matmul`` kernel on
+    the card, with its trace recorded and an answer at every completion;
+    the trace replayed in this process through ``ReplayBackend(compute=
+    "device")`` on the same operands with every estimate bit-identical, the
+    replay's shard products (the workers' ``TorchShardComputer`` path)
+    within 1e-5 relative of the float64 oracle, every exact state decoded
+    again in float64 from those products (the served squared error within
+    1e-6 relative of it) and its error within the bound its decode weights
+    put on the products' errors (which workers finish first is measured
+    here, so phase 4's fixed limits do not apply); the host's copy rates,
+    the workers' timing split, the master's encode, publish and decode, the
+    card's memory from ``nvidia-smi`` and its compute mode (MPS is
+    reported, never started).
+    Then, at 128 x 2048 on zero-slack MatDot (K=2, N=3), three serve
+    processes at once: ``crash:1,hang:1`` chaos with ``--speculate`` (no
+    loss, the hung worker retired, every request exact), ``--replicate
+    2``, the socket transport over two 127.0.0.1 hosts with a crash; and
+    meanwhile in this process, with L-SAC (K=2, N=6), ``run_open``
+    in real time against a ``sim`` replay of its trace (same sheds, drops,
+    batches and answers).  The coded_matmul launches come from the
+    workers' own counters.
+14. Print the card's name and power limit, one ``{"kernels": [...]}`` line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -118,6 +144,8 @@ ENCODE_SWEEP = [(24, 8, 100, 1000), (5, 3, 70, 33), (2, 1, 16, 16),
 SERVE_ARGS = ["--rows", "2048", "--inner", "32768", "--K", "8", "--N", "24",
               "--batch-size", "4", "--device", "cuda", "--backend", "device",
               "--deadlines", "1.1,1.6,3.0,9.0", "--json"]
+# the paper job phases 4 and 13 both serve, on the same drawn operands
+PAPER_JOB = ["--code", "lsac_ortho", "--requests", "8"]
 # (B, H, Hkv, Lq, Lkv, d): the reference's flash sweep, hymba's heads, the
 # other head dims the kernels are built for, then the bf16 tensor-core
 # kernel's edges: Lq, Lkv off its query and key tiles (Lkv < Lq too),
@@ -881,9 +909,34 @@ def _device_rows(prof, wall_ms: float, what: str) -> dict:
                         for n, c, ms in rows]}
 
 
-def _serve(argv):
+def _serve(argv, operands=None):
     from repro_torch.launch.serve import build_parser, run_serve
-    return run_serve(build_parser().parse_args(argv)).to_dict()
+    return run_serve(build_parser().parse_args(argv), operands).to_dict()
+
+
+def _child_env() -> dict:
+    """This process's environment with the checkout's ``src`` on the path,
+    for the serve CLI started as a second process."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    return env
+
+
+def start_paper_operands():
+    """Draw phase 4's L-SAC operands (8 pairs of 2048 x 32768, from the
+    CLI's ``--seed``) in a thread while the kernels build: phases 4 and 13
+    serve this one list."""
+    import threading
+
+    from repro_torch.launch.serve import build_parser, draw_operands
+    args = build_parser().parse_args(SERVE_ARGS + PAPER_JOB)
+    out: list = []
+    thread = threading.Thread(target=lambda: out.extend(draw_operands(args)),
+                              daemon=True)
+    thread.start()
+    return thread, out
 
 
 def phase_small_serve() -> dict:
@@ -911,7 +964,7 @@ def phase_small_serve() -> dict:
     return {"max_norm_diff": worst}
 
 
-def phase_full_serve(code: str, requests: int) -> dict:
+def phase_full_serve(code: str, requests: int, operands=None) -> dict:
     from repro_torch.kernels import coded_matmul, poly_encode
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -920,7 +973,7 @@ def phase_full_serve(code: str, requests: int) -> dict:
     poly_encode.launches = 0
     t0 = time.perf_counter()
     rep = _serve(SERVE_ARGS + ["--code", code, "--requests",
-                                      str(requests)])
+                                      str(requests)], operands)
     total = time.perf_counter() - t0
     launches = {"coded_matmul": coded_matmul.launches,
                 "poly_encode": poly_encode.launches}
@@ -947,8 +1000,10 @@ def phase_full_serve(code: str, requests: int) -> dict:
            "peak_bytes": peak, "deadlines": rows,
            "exact_max_err_by_batch": {b: max(e) for b, e in exact.items()},
            "cache": rep["cache"]}
+    drawn = "with operand drawing" if operands is None \
+        else "operands drawn beforehand"
     log(f"serve {code} x{requests}: {s['wall_s']:.2f} s serve loop "
-        f"({s['rps']:.2f} req/s; {total:.1f} s with operand drawing), peak "
+        f"({s['rps']:.2f} req/s; {total:.1f} s {drawn}), peak "
         f"device memory {peak / 2**30:.2f} GiB, launches {launches}")
     for row in rows:
         log(f"  deadline {row['deadline']:.1f}: mean rel err "
@@ -1195,13 +1250,10 @@ def start_autotune_sim() -> subprocess.Popen:
     """The ``--backend sim`` twin of the autotune run, in a second process:
     drawing the 16 full-width operand pairs takes most of a run's time on
     the host, so the twin draws while this process works."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
-                               else []))
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", *AUTOTUNE_ARGS,
-         "--backend", "sim"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+         "--backend", "sim"], cwd=ROOT, env=_child_env(),
+        stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
 
 
@@ -1368,6 +1420,619 @@ def phase_engine() -> dict:
     return out
 
 
+# Phase 13: the worker-process cluster.  The full-width job is phase 4's
+# L-SAC serve (same operands, code and deadlines) on CLUSTER_WORKERS worker
+# processes, each computing its shard in the coded_matmul kernel on the card;
+# the chaos, replication and socket runs (SIDE_ARGS, each a serve CLI in a
+# process of its own, all three at once) and the real-time run
+# (CLUSTER_SIDE) are cut in width and fleet: they check fault and clock
+# semantics, and the host moves their bytes slowly (PERF.md §4, §5).
+CLUSTER_WORKERS, CLUSTER_REQUESTS = 24, 8
+CLUSTER_ARGS = ["--rows", "2048", "--inner", "32768", "--K", "8", "--N",
+                "24", "--code", "lsac_ortho", "--device", "cuda",
+                "--backend", "cluster", "--compute", "device", "--workers",
+                str(CLUSTER_WORKERS), "--deadlines", "1.1,1.6,3.0,9.0",
+                "--grace", "120", "--stream", "--requests",
+                str(CLUSTER_REQUESTS), "--json"]
+# a batch of B requests publishes B x CLUSTER_BATCH_BYTES of float32 stacks
+CLUSTER_BATCH_BYTES = 24 * (2048 * 4096 + 4096 * 2048) * 4
+CLUSTER_SIDE = {"rows": 128, "inner": 2048, "K": 2, "N": 6}
+SIDE_WIDTH = "128x2048"
+# --grace is slack for a replacement worker that starts while the other
+# runs start theirs: an expected run never waits for it
+SIDE_ARGS = ["--rows", "128", "--inner", "2048", "--K", "2", "--N", "3",
+             "--code", "matdot", "--device", "cuda", "--backend",
+             "cluster", "--compute", "device", "--workers", "3",
+             "--requests", "8", "--batch-size", "4", "--deadlines",
+             "0.2,0.5,2.0", "--grace", "30", "--json"]
+SIDE_RUNS = {
+    "chaos_speculate": ["--chaos", "crash:1,hang:1,sleep:0.005:0.02",
+                        "--speculate", "--spares", "2"],
+    "replicate": ["--chaos", "crash:1,sleep:0.005:0.02", "--replicate", "2",
+                  "--spares", "3"],
+    "socket": ["--chaos", "crash:1,sleep:0.005:0.02", "--transport",
+               "socket", "--hosts", "127.0.0.1,127.0.0.1"]}
+SIDE_TIMEOUT = 300.0
+# the product check: the reference's per-family tolerance for float32
+# device products against the float64 oracle (tests/test_cluster.py)
+CLUSTER_PRODUCT_TOL = 1e-5
+# the decode check: each exact state decoded again here in float64 from the
+# same float32 products, weights and completion order; the served squared
+# error must agree to this relative (float64 summation order moves it by
+# about 1e-9)
+CLUSTER_DECODE_TOL = 1e-6
+# the real-time open loop: a burst at 0 past the queue limit, then a
+# Poisson stream from this many seconds on
+REALTIME_TAIL_START = 1.5
+
+
+def _nvidia_smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def _mps_running() -> bool:
+    """Whether an MPS control or server process is running (it is never
+    started here)."""
+    for comm in Path("/proc").glob("[0-9]*/comm"):
+        try:
+            if comm.read_text().strip().startswith("nvidia-cuda-mps"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+class _MemoryPoll:
+    """The card's ``memory.used`` (MiB, every process's contexts together)
+    sampled from ``nvidia-smi`` every half second while a run is going."""
+
+    def __init__(self):
+        import threading
+        self.samples = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while True:
+            self.samples.append(float(_nvidia_smi("memory.used")))
+            if self._stop.wait(0.5):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(60)
+
+
+def _host_copy_rates(nbytes: int = 1 << 28) -> dict:
+    """GB/s of the host copies the cluster's data path makes, on ``nbytes``
+    of float32: into a fresh shared-memory block (the master's publish) and
+    into the same block again, into fresh and touched anonymous memory,
+    between the card and pageable or pinned host memory, and through a pipe
+    (``nbytes / 4``: one worker's products of a full-width batch of 4, as
+    the local transport's result queue carries them)."""
+    import numpy as np
+    from multiprocessing import shared_memory
+    src = np.ones(nbytes // 4, np.float32)
+
+    def rate(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return nbytes / (time.perf_counter() - t0) / 1e9
+
+    def fill(dst):
+        dst[...] = src
+
+    out = {}
+    shm = shared_memory.SharedMemory(create=True, size=nbytes)
+    try:
+        dst = np.ndarray(src.shape, src.dtype, buffer=shm.buf)
+        out["shm_fresh"] = rate(lambda: fill(dst))
+        out["shm_touched"] = rate(lambda: fill(dst))
+        del dst
+    finally:
+        shm.close()
+        shm.unlink()
+    anon = np.empty_like(src)
+    out["anon_fresh"] = rate(lambda: fill(anon))
+    out["anon_touched"] = rate(lambda: fill(anon))
+    card = torch.from_numpy(src).cuda()
+    out["d2h_pageable_fresh"] = rate(lambda: card.cpu())
+    pinned = torch.empty(card.shape, dtype=card.dtype, pin_memory=True)
+    out["d2h_pinned"] = rate(lambda: pinned.copy_(card))
+    out["h2d_pageable"] = rate(lambda: torch.from_numpy(anon).cuda())
+    out["h2d_pinned"] = rate(lambda: card.copy_(pinned))
+    del card, pinned
+    torch.cuda.empty_cache()
+    import multiprocessing as mp
+    import threading
+    recv, send = mp.Pipe(duplex=False)
+    payload = bytes(nbytes // 4)
+    writer = threading.Thread(target=send.send_bytes, args=(payload,))
+    t0 = time.perf_counter()
+    writer.start()
+    got = recv.recv_bytes()
+    writer.join()
+    out["pipe"] = len(got) / (time.perf_counter() - t0) / 1e9
+    recv.close()
+    send.close()
+    return out
+
+
+def _exact_checks(code, beta_mode: str, order, P, diff, results, operands,
+                  device) -> dict:
+    """Check the decode of each exact state of one cluster batch, and hold
+    its error to the bound its weights put on the products' errors.
+
+    An exact state's estimate is ``β Σ_j w_j P_j`` over the first ``m``
+    completions (weights solved on the host).  The decode is checked
+    directly: each exact state is decoded again here, in float64 from the
+    replay's float32 products ``P`` ``(B, N, Nx, Ny)`` with the same
+    weights and completion order, and the served squared error must match
+    that decode's to :data:`CLUSTER_DECODE_TOL` relative, whatever the
+    weights' size.  The bound: with the float32 shard products off the
+    float64 oracle's by ``diff[r, n]`` (Frobenius, per request and shard),
+    ``‖est − C‖ ≤ |β| Σ_j |w_j| diff[r, order[j]]`` plus the float64
+    decode's own residual (floored at 1e-9 ‖C‖).  Which workers finish
+    first sets ``w``, so this bound, not a fixed error, is what a measured
+    completion order can be held to.
+    """
+    import numpy as np
+    R = code.recovery_threshold
+    w, _ = code.estimate_weights(order[:R], R)
+    out = {"first_R": [int(n) for n in order[:R]], "worst_ratio": 0.0,
+           "sum_abs_w": float(np.abs(w).sum()), "decode_rel_dev": 0.0,
+           "exact_states": 0}
+    for r, (res, (A, B)) in enumerate(zip(results, operands)):
+        C = torch.from_numpy(A).to(device) @ torch.from_numpy(B).to(device)
+        c_norm = float(torch.linalg.vector_norm(C))
+        for a in res.answers:
+            if a.rel_err is None or a.m < R:
+                continue
+            w, info = code.estimate_weights(order[:a.m], a.m)
+            beta = complex(code.beta(info, a.m, beta_mode, None))
+            wt = torch.as_tensor(np.asarray(w), device=device)
+            stack = P[r].index_select(0, torch.as_tensor(
+                np.asarray(order[:len(w)]), device=device))
+            dt = torch.promote_types(torch.promote_types(
+                wt.dtype, stack.dtype), torch.float64)
+            est = torch.tensordot(wt.to(dt), stack.to(dt), dims=1)
+            est = est * (beta if est.is_complex() else beta.real)
+            if est.is_complex():
+                est = est.real
+            err = float(torch.linalg.vector_norm(est - C)) ** 2 / c_norm ** 2
+            out["decode_rel_dev"] = max(out["decode_rel_dev"],
+                                        abs(a.rel_err - err) / err)
+            out["exact_states"] += 1
+            bound = abs(beta) * float(np.abs(w) @ diff[r, order[:len(w)]]) \
+                + 1e-9 * c_norm
+            out["worst_ratio"] = max(out["worst_ratio"],
+                                     math.sqrt(a.rel_err) * c_norm / bound)
+            del est, stack
+        del C
+    return out
+
+
+def _hist(snap: dict, name: str) -> dict:
+    h = snap["histograms"].get(name) or {"count": 0, "total": 0.0,
+                                         "max": 0.0}
+    return {"count": h["count"], "total_s": h["total"],
+            "mean_s": h["total"] / h["count"] if h["count"] else None,
+            "max_s": h["max"] if h["count"] else None}
+
+
+def _answers(rep_requests) -> list:
+    return [[(a["t"], a["m"], a["kind"], a["rel_err"]) for a in r["answers"]]
+            for r in rep_requests]
+
+
+def _start_side_runs(out_dir: Path) -> dict:
+    """Start the chaos, replication and socket serves, each as the serve CLI
+    in a process of its own, all at once; their output goes to files."""
+    procs = {}
+    for name, extra in SIDE_RUNS.items():
+        out = open(out_dir / f"side_{name}.json", "w")
+        err = open(out_dir / f"side_{name}.err", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *SIDE_ARGS,
+             *extra], cwd=ROOT, env=_child_env(), stdout=out, stderr=err,
+            text=True)
+        out.close()
+        err.close()
+        procs[name] = (proc, time.perf_counter())
+    return procs
+
+
+def _stop(procs: dict) -> None:
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _finish_side_runs(procs: dict, out_dir: Path) -> dict:
+    """Wait for the side serves and check each against what its chaos and
+    flags must give."""
+    side, ended = {}, {}
+    deadline = time.perf_counter() + SIDE_TIMEOUT
+    while len(ended) < len(procs):        # each run's own end, as it comes
+        for name, (proc, _) in procs.items():
+            if name not in ended and proc.poll() is not None:
+                ended[name] = time.perf_counter()
+        running = [p for n, (p, _) in procs.items() if n not in ended]
+        if running and time.perf_counter() > deadline:
+            _stop(procs)
+            fail(f"cluster side runs: no result within {SIDE_TIMEOUT:.0f} "
+                 f"s from {sorted(set(procs) - set(ended))}")
+        if running:
+            try:
+                running[0].wait(timeout=0.1)
+            except subprocess.TimeoutExpired:
+                pass
+    for name, (proc, t0) in procs.items():
+        total = ended[name] - t0
+        if proc.returncode != 0:
+            tail = (out_dir / f"side_{name}.err").read_text()[-2000:]
+            fail(f"cluster {name}: the serve exited {proc.returncode}: "
+                 f"{tail}")
+        text = (out_dir / f"side_{name}.json").read_text()
+        rep = json.loads(text.strip().splitlines()[-1])
+        cl = rep["cluster"]
+        side[name] = {"pool": cl["pool"], "losses": cl["losses"],
+                      "re_dispatch": (cl["speculation"] or {}).get(
+                          "by_reason"),
+                      "launches": cl["kernel_launches"],
+                      "exact": all(r["t_exact"] is not None
+                                   for r in rep["requests"]),
+                      "wall_s": rep["summary"]["wall_s"],
+                      "startup_s": cl["startup_s"], "total_s": total}
+        if not cl["kernel_launches"].get("coded_matmul"):
+            fail(f"cluster {name}: the workers launched no kernel")
+    chaos, repl, sock = (side["chaos_speculate"], side["replicate"],
+                         side["socket"])
+    cp, reasons = chaos["pool"], chaos["re_dispatch"]
+    if chaos["losses"] or cp["crashed"] != 1 or cp["retired"] < 1 \
+            or "crash" not in reasons or "hedge" not in reasons \
+            or not chaos["exact"]:
+        fail(f"cluster chaos+speculate: {chaos}")
+    if repl["losses"] or repl["re_dispatch"] != {"replicate": 3 * 2} \
+            or not repl["exact"]:
+        fail(f"cluster --replicate 2: {repl}")
+    if sock["losses"] != [[0, 0, "crash"]] or sock["pool"]["replaced"] != 1:
+        fail(f"cluster socket transport: {sock}")
+    log(f"  {SIDE_WIDTH}, matdot K=2, N=3, 8 requests in batches of 4, "
+        f"three serve processes at once: crash:1,hang:1 + --speculate: no "
+        f"loss, re-dispatch {reasons}, {cp['retired']} retired, every "
+        f"request exact; --replicate 2 with crash:1: no loss, "
+        f"{sum(repl['re_dispatch'].values())} pinned copies; socket "
+        f"transport (two 127.0.0.1 hosts) with crash:1: shard 0 of batch 0 "
+        f"lost, the fleet healed")
+    for name, row in side.items():
+        log(f"    {name}: {row['total_s']:.1f} s from its start (fleet "
+            f"start {row['startup_s']:.1f} s, serve loop {row['wall_s']:.1f}"
+            f" s); pool {row['pool']}")
+    return side
+
+
+def phase_cluster(device_serve: dict, operands: list) -> dict:
+    """The worker-process cluster on the card: the full-width serve through
+    the CLI on phase 4's operands with its trace recorded, the trace
+    replayed bit for bit in this process, the shard products held to the
+    float64 oracle and every exact state's decode checked; at a smaller
+    width, the real-time open loop, and chaos with speculation, replication
+    and the socket transport (three serve processes, started once the
+    real-time run is done, while the full-width trace is replayed)."""
+    from repro_torch.launch.serve import build_parser
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "cluster"     # ignored by git
+    out_dir.mkdir(parents=True, exist_ok=True)
+    shm = subprocess.run(["df", "-h", "/dev/shm"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    log("df -h /dev/shm:\n" + shm.rstrip())
+    shm_free = os.statvfs("/dev/shm")
+    shm_bytes = shm_free.f_bavail * shm_free.f_frsize
+    batch = 4
+    while batch > 1 and shm_bytes < 2 * batch * CLUSTER_BATCH_BYTES:
+        batch //= 2
+    compute_mode = _nvidia_smi("compute_mode")
+    mps = _mps_running()
+    log(f"cluster: /dev/shm has {shm_bytes / 2**30:.1f} GiB free, a batch "
+        f"of {batch} publishes {batch * CLUSTER_BATCH_BYTES / 2**30:.2f} GiB"
+        f" (local transport, shared memory); compute mode {compute_mode}, "
+        f"MPS {'running' if mps else 'not running'} (not started here)")
+
+    t0 = time.perf_counter()
+    rates = _host_copy_rates()
+    log(f"  host copies of 256 MiB (the pipe: 64 MiB) in "
+        f"{time.perf_counter() - t0:.1f} s, GB/s: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in rates.items()))
+
+    # (1) the full-width serve on phase 4's operands, its trace recorded
+    trace = str(out_dir / "trace.json")
+    metrics = str(out_dir / "metrics.json")
+    argv = CLUSTER_ARGS + ["--batch-size", str(batch), "--record", trace,
+                           "--metrics-out", metrics]
+    args = build_parser().parse_args(argv)
+    if len(operands) != CLUSTER_REQUESTS:
+        fail("cluster: phase 4's operands were not drawn")
+    torch.cuda.empty_cache()
+    mem_before = float(_nvidia_smi("memory.used"))
+    _zero_launches()
+    t0 = time.perf_counter()
+    with _MemoryPoll() as mem:
+        rep = _serve(argv, operands)
+    total = time.perf_counter() - t0
+    master = _read_launches()
+    # (4) the real-time open loop and a sim replay of its trace, alone: its
+    # wall-clock admissions must not wait on other processes' startup
+    side_rt = _cluster_realtime("cuda")
+    # (5) the side serves run while this process replays the full-width
+    # trace and checks it (steps 2 and 3)
+    procs = _start_side_runs(out_dir)
+    try:
+        out = _cluster_full_width(rep, args, batch, operands, trace, metrics,
+                                  total, master, mem, mem_before,
+                                  device_serve)
+        side = _finish_side_runs(procs, out_dir)
+    finally:
+        _stop(procs)
+    side["realtime"] = side_rt
+    elapsed = time.perf_counter() - t_phase
+    log(f"cluster phase: {elapsed:.1f} s ({CARD})")
+    out.update(batch=batch, shm_free_bytes=shm_bytes,
+               host_copy_gb_s=rates, compute_mode=compute_mode, mps=mps,
+               side=side, phase_s=elapsed)
+    return out
+
+
+def _cluster_full_width(rep, args, batch, operands, trace, metrics, total,
+                        master, mem, mem_before, device_serve) -> dict:
+    """Check the full-width cluster serve, print its breakdown, and replay
+    its trace in this process (steps 1 to 3 of phase 13)."""
+    import numpy as np
+
+    from repro_torch.cluster.backend import ReplayBackend
+    from repro_torch.cluster.events import TraceRecording
+    from repro_torch.launch.serve import CODES
+    from repro_torch.serving import (DecodeWeightCache, MasterScheduler,
+                                     ServeConfig, SimulatedBackend)
+    cl = rep["cluster"]
+    workers = cl["kernel_launches"]
+    s = rep["summary"]
+    n_batches = -(-CLUSTER_REQUESTS // batch)
+    if s["requests"] != CLUSTER_REQUESTS:
+        fail(f"cluster: served {s['requests']} of {CLUSTER_REQUESTS}")
+    if cl["losses"] or cl["pool"]["crashed"] or cl["pool"]["retired"]:
+        fail(f"cluster: a clean fleet lost work {cl['losses']} "
+             f"{cl['pool']}")
+    if workers.get("coded_matmul", 0) < CLUSTER_WORKERS * n_batches:
+        fail(f"cluster: the workers report {workers} kernel launches, "
+             f"need {CLUSTER_WORKERS * n_batches} coded_matmul")
+    if master["coded_matmul"] != 0 or master["poly_encode"] <= 0:
+        fail(f"cluster: the master launched {master} (products belong to "
+             "the workers, the encode to the master)")
+    R = rep["code"]["R"]
+    exact = {}
+    for r in rep["requests"]:
+        # deadlines are wall-clock here: an early tick may come before the
+        # first threshold, but the last answer must carry an estimate
+        if r["answers"][-1]["rel_err"] is None:
+            fail(f"cluster: request {r['req_id']} ends without an estimate")
+        for a in r["answers"]:
+            if a["rel_err"] is not None and not math.isfinite(a["rel_err"]):
+                fail(f"cluster: request {r['req_id']} has a non-finite "
+                     f"error at t={a['t']}")
+            if a["rel_err"] is not None and a["m"] >= R:
+                exact.setdefault(r["batch"], []).append(a["rel_err"])
+    exact_max = {b: max(e) for b, e in exact.items()}
+    if len(exact_max) != n_batches:
+        fail(f"cluster: exact states in batches {sorted(exact_max)} of "
+             f"{n_batches}")
+    snap = json.loads(Path(metrics).read_text())
+    split = {k: _hist(snap, f"backend.shard_{k}_seconds")
+             for k in ("wait", "operand", "compute")}
+    master_s = {"encode": _hist(snap, "backend.encode_seconds"),
+                "publish": _hist(snap, "backend.publish_seconds"),
+                "decode_push": _hist(snap, "serve.decode_push_seconds")}
+    mem_peak = max(mem.samples) if mem.samples else None
+    arrivals = []                     # per batch: first, median, last (s)
+    for rec in TraceRecording.load(trace).batches:
+        t = sorted(rec.times.values())
+        arrivals.append([t[0], t[len(t) // 2], t[-1]])
+    wall_batch = s["wall_s"] / n_batches
+    dev_batch = device_serve["wall_s"] / n_batches
+    log(f"cluster serve lsac_ortho 2048x32768 x{CLUSTER_REQUESTS} on "
+        f"{CLUSTER_WORKERS} worker processes, batches of {batch}: "
+        f"{s['wall_s']:.2f} s serve loop = {wall_batch:.3f} s per batch "
+        f"(phase 4's device backend on the same job: {dev_batch:.3f} s per "
+        f"batch); fleet start {cl['startup_s']:.1f} s; {total:.1f} s in all"
+        f" (operands drawn beforehand) ({CARD})")
+    log(f"  worker timing triples over {split['compute']['count']} shards, "
+        f"mean / max s: wait {split['wait']['mean_s']:.4f} / "
+        f"{split['wait']['max_s']:.4f}, operands "
+        f"{split['operand']['mean_s']:.4f} / {split['operand']['max_s']:.4f}"
+        f", compute {split['compute']['mean_s']:.4f} / "
+        f"{split['compute']['max_s']:.4f}")
+    log("  shard results arrive, s after dispatch (first / median / last):"
+        " " + "; ".join(" / ".join(f"{x:.2f}" for x in a) for a in arrivals))
+    log(f"  master per batch, mean s: encode (device, to the host) "
+        f"{master_s['encode']['mean_s']:.3f}, publish (shared memory) "
+        f"{master_s['publish']['mean_s']:.3f}; decode pushes (host time) "
+        f"{master_s['decode_push']['total_s']:.3f} s in all")
+    log(f"  card memory used (nvidia-smi, all contexts): {mem_before:.0f} "
+        f"MiB before, peak {mem_peak:.0f} MiB during the serve; launches: "
+        f"workers {workers}, master {master}")
+    for row in s["deadlines"]:
+        log(f"  deadline {row['deadline']:.1f} s (wall clock): mean rel err "
+            f"{row['mean_err']:.3e} over {row['answers']} answers")
+    for b, e in sorted(exact_max.items()):
+        log(f"  batch {b}: exact-state max squared rel err {e:.3e}")
+
+    # (2) the trace replayed through ReplayBackend(compute="device") in
+    # this process on the same operands: every estimate bit-identical; the
+    # replay's products (the workers' TorchShardComputer path) held to the
+    # float64 oracle; (3) every exact state's decode checked
+    code = CODES[args.code].build(args.K, args.N)
+    kept = []
+
+    class _KeepingReplay(ReplayBackend):
+        def compute_products(self, *a, **kw):
+            P = super().compute_products(*a, **kw)
+            kept.append(P)
+            return P
+
+    t0 = time.perf_counter()
+    replay = _KeepingReplay(TraceRecording.load(trace), compute="device",
+                            device=args.device)
+    cfg = ServeConfig(deadlines=tuple(float(x) for x in
+                                      args.deadlines.split(",")),
+                      stream=args.stream, batch_size=args.batch_size,
+                      beta_mode=args.beta, decoder=args.decoder,
+                      seed=args.seed)
+    sched = MasterScheduler(code, replay, cfg,
+                            DecodeWeightCache(args.cache_size))
+    for A, B in operands:
+        sched.submit(A, B)
+    got = sched.run()
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    want = _answers(rep["requests"])
+    mine = [[(a.t, a.m, a.kind, a.rel_err) for a in r.answers] for r in got]
+    if mine != want:
+        fail("cluster: the device replay's estimates differ from the "
+             "cluster run's")
+    t0 = time.perf_counter()
+    worst, ratio, dev_worst, amp = 0.0, 0.0, 0.0, {}
+    recorded = TraceRecording.load(trace).batches
+    by_batch = {}
+    for res in got:
+        by_batch.setdefault(res.batch, []).append(res)
+    for i, P in enumerate(kept):
+        part = operands[i * batch:(i + 1) * batch]
+        P64 = SimulatedBackend._products_torch(
+            code, [a for a, _ in part], [b for _, b in part], None, P.device)
+        diff = torch.linalg.vector_norm(P.double() - P64, dim=(-2, -1))
+        den = torch.linalg.vector_norm(P64, dim=(-2, -1))
+        worst = max(worst, float((diff / den).max()))
+        diff = diff.cpu().numpy()                       # (B, N) absolute
+        del P64, den
+        times = recorded[i].times
+        order = np.array(sorted(times, key=times.get))  # arrival order
+        amp[i + 1] = _exact_checks(code, args.beta, order, P, diff,
+                                   by_batch[i + 1], part, P.device)
+        ratio = max(ratio, amp[i + 1]["worst_ratio"])
+        dev_worst = max(dev_worst, amp[i + 1]["decode_rel_dev"])
+    del kept
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    if worst > CLUSTER_PRODUCT_TOL:
+        fail(f"cluster: shard products {worst:.3e} from the float64 oracle "
+             f"(limit {CLUSTER_PRODUCT_TOL})")
+    log(f"  replay (ReplayBackend compute=device, this process): all "
+        f"{len(mine)} answer streams bit-identical in {replay_s:.1f} s; "
+        f"every shard's products within {worst:.2e} relative of the float64"
+        f" oracle (limit {CLUSTER_PRODUCT_TOL}; checks {check_s:.1f} s)")
+    for b, row in sorted(amp.items()):
+        log(f"  batch {b}: first R = {row['first_R']}: sum |w| of the exact "
+            f"decode {row['sum_abs_w']:.4g}; {row['exact_states']} exact "
+            f"states, each decoded again in float64: served squared error "
+            f"within {row['decode_rel_dev']:.2e} relative (limit "
+            f"{CLUSTER_DECODE_TOL}); error at most {row['worst_ratio']:.3f} "
+            f"of its bound")
+    if not all(row["exact_states"] for row in amp.values()):
+        fail("cluster: a batch has no exact state to check")
+    if dev_worst > CLUSTER_DECODE_TOL:
+        fail(f"cluster: an exact state's served error is {dev_worst:.3e} "
+             f"relative from its float64 decode (limit "
+             f"{CLUSTER_DECODE_TOL})")
+    if ratio > 1.0:
+        fail(f"cluster: an exact state's error exceeds its bound by "
+             f"{ratio:.3f}x")
+    return {"wall_s": s["wall_s"], "wall_per_batch_s": wall_batch,
+            "device_backend_wall_per_batch_s": dev_batch,
+            "startup_s": cl["startup_s"], "total_s": total,
+            "worker_split": split, "master": master_s,
+            "arrivals_s": arrivals,
+            "memory_used_mib": {"before": mem_before, "peak": mem_peak},
+            "launches": {"coded_matmul": workers.get("coded_matmul", 0),
+                         "poly_encode": master["poly_encode"]},
+            "exact_max_err_by_batch": exact_max,
+            "deadlines": s["deadlines"], "replay_s": replay_s,
+            "check_s": check_s, "product_max_rel_err": worst,
+            "exact_checks": amp}
+
+
+def _cluster_realtime(device: str) -> dict:
+    """``run_open`` on the cluster paces arrivals on the wall clock: a burst
+    past the queue limit, then a short Poisson stream, batches of one.  A
+    ``sim``-path replay of the recorded trace must shed, drop and batch the
+    same requests and give the same answers."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.cluster.backend import ClusterBackend, ReplayBackend
+    from repro_torch.launch.serve import CODES
+    from repro_torch.serving import (MasterScheduler, OpenRequest,
+                                     ServeConfig, TenantSpec, build_workload)
+    side = CLUSTER_SIDE
+    ten = TenantSpec("rt", rows=side["rows"], inner=side["inner"],
+                     target_error=1e-2, deadline=20.0)
+    rng = np.random.default_rng(41)
+    burst = [OpenRequest(0.0, rng.standard_normal((side["rows"],
+                                                   side["inner"])),
+                         rng.standard_normal((side["inner"], side["rows"])),
+                         ten) for _ in range(6)]
+    # the Poisson stream starts once the burst's batches are long served,
+    # so no admission hinges on how much sooner the virtual clock runs
+    tail = [replace(r, arrival=REALTIME_TAIL_START + r.arrival)
+            for r in build_workload((ten,), rate=2.0, horizon=2.0,
+                                    seed=43)]
+    work = burst + tail
+    cfg = ServeConfig(deadlines=(0.2, 0.5, 2.0), batch_size=1, seed=3,
+                      queue_limit=3, shed_expired=True)
+    code = CODES["lsac_ortho"].build(side["K"], side["N"])
+    t0 = time.perf_counter()
+    with ClusterBackend(workers=side["N"], seed=3, compute="device",
+                        record=True, device=device) as be:
+        # the fleet starts before the first arrival: run_open's clock
+        # counts dispatch spans, not a worker's CUDA start
+        if not be.pool.wait_ready(timeout=120.0):
+            fail("cluster real-time open loop: the fleet did not start")
+        live = MasterScheduler(code, be, cfg)
+        got = live.run_open(work)
+        rec = be.recording
+    wall = time.perf_counter() - t0
+    replay = MasterScheduler(code, ReplayBackend(rec, compute="device",
+                                                 device=device), cfg)
+    want = replay.run_open(work, realtime=False)
+    same = (live.shed == replay.shed
+            and [(r.req_id, r.batch, r.dropped) for r in got]
+            == [(r.req_id, r.batch, r.dropped) for r in want]
+            and [[(a.t, a.m, a.rel_err) for a in r.answers] for r in got]
+            == [[(a.t, a.m, a.rel_err) for a in r.answers] for r in want])
+    if not same or not live.shed or not got:
+        fail(f"cluster real-time open loop: live shed {live.shed}, served "
+             f"{len(got)}; the sim replay shed {replay.shed}, served "
+             f"{len(want)}")
+    dropped = sum(1 for r in got if r.dropped)
+    log(f"  real-time open loop: {len(work)} arrivals ({len(burst)} at 0, "
+        f"then Poisson from {REALTIME_TAIL_START} s), {len(live.shed)} "
+        f"shed, {len(got) - dropped} served, {dropped} dropped in "
+        f"{wall:.1f} s of wall clock; the sim replay of its trace sheds, "
+        f"drops, batches and answers the same")
+    return {"arrivals": len(work), "shed": len(live.shed),
+            "served": len(got) - dropped, "dropped": dropped, "wall_s": wall}
+
+
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1391,11 +2056,16 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    drawer, paper_ops = start_paper_operands()
+    t0 = time.perf_counter()
     ptxas = phase_build()
+    drawer.join()
+    log(f"build and operand drawing (8 pairs of 2048x32768, in a thread "
+        f"meanwhile): {time.perf_counter() - t0:.1f} s")
     mm = phase_coded_matmul(dev, gen)
     enc = phase_poly_encode(dev, gen)
     small = phase_small_serve()
-    lsac = phase_full_serve("lsac_ortho", 8)
+    lsac = phase_full_serve("lsac_ortho", 8, paper_ops)
     gsac = phase_full_serve("gsac_k1_5", 4)
     breakdown = phase_breakdown()
     flash = phase_flash(dev, gen)
@@ -1417,6 +2087,8 @@ def main(argv=None) -> int:
             sim_twin.wait()
     log(f"open loop, autotune and engine phases: "
         f"{time.perf_counter() - t_new:.1f} s ({card})")
+    cluster = phase_cluster(lsac, paper_ops)
+    del paper_ops
 
     # The exact L-SAC fit reads the first R completions.  Batch 1's
     # completion order gives a well-conditioned fit: its exact state is held
@@ -1440,7 +2112,7 @@ def main(argv=None) -> int:
 
     runs = {"lsac_ortho": lsac, "gsac_k1_5": gsac,
             "open_loop": open_loop["device"],
-            "autotune": autotune["device"]}
+            "autotune": autotune["device"], "cluster": cluster}
     mm32, enc_main = mm["float32"], enc["batch_rows24"]
     kernels = [
         {"name": "coded_matmul", "status": "ported", "route": "cuda",
@@ -1491,12 +2163,13 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "ptxas": ptxas, "coded_matmul": mm, "poly_encode": enc,
+            {"card": card, "ptxas": ptxas, "coded_matmul": mm,
+             "poly_encode": enc,
              "small_serve": small, "serve": runs, "breakdown": breakdown,
              "flash_attention": flash, "ssm_scan": scan,
              "small_lm": small_lm, "lm": lm, "lm_breakdown": lm_breakdown,
              "open_loop": open_loop, "autotune": autotune,
-             "engine": engine, "kernels": kernels},
+             "engine": engine, "cluster": cluster, "kernels": kernels},
             indent=2))
     print(card)
     print(json.dumps({"kernels": kernels, "not_ported": []}))

@@ -8,7 +8,16 @@ the worker products and the encode run in hand-written CUDA kernels
 (:mod:`repro_torch.kernels`, sources in ``csrc/``), and serving
 (:mod:`repro_torch.serving`, :mod:`repro_torch.launch.serve`) keeps
 operands, products and decode state on the card from submit to answer.
-"""
-from .device import resolve_device
 
+Importing the package itself loads no torch: a numpy-compute cluster
+worker (:mod:`repro_torch.cluster.worker`, the spawn target) starts
+without it.
+"""
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -38,8 +38,45 @@ the first N encode shards of the starting code; ``--class-cache`` gives
 each request class its own decode-weight budget.  The observability group
 (``--metrics-out``, ``--trace-out``, ``--flight-recorder``,
 ``--sample-interval``, ``--metrics-port``, ``--burn-alerts``) records the
-run.  The worker-process cluster and its fleet, chaos, record/replay and
-speculation flags are not ported yet.
+run.
+
+Cluster runtime (``--backend cluster``): shards execute on a real worker
+pool (:mod:`repro_torch.cluster`) and completion times are *measured* —
+deadlines become wall-clock seconds from dispatch.  ``--workers`` is the
+starting fleet (the pool acquires more whenever the serving code needs
+them — the scale-out path), ``--spares`` keeps warm spares after releases,
+``--grace`` bounds the wait for stragglers past the last deadline,
+``--chaos`` injects reproducible perturbations (``sleep:LO:HI``,
+``slow:C:DELAY``, ``crash:C``, ``hang:C``), ``--record PATH`` saves the
+measured completion trace, and ``--replay PATH`` (``--backend replay``)
+re-serves a recorded trace through the simulated product path
+(bit-identical decode outputs).  ``--compute {device,numpy}`` picks the
+shard-product implementation each worker runs: the ``coded_matmul`` kernel
+on the worker's card (the default; ``--device cpu``: its plain version),
+or the reference's float64 numpy einsum; ``--transport {local,socket}``
+picks the master<->worker plumbing (pipes + shared memory, or framed TCP
+with ``--hosts`` listener addresses).  A trace replays with ``--replay
+PATH`` and the ``--compute`` it was recorded with.  With ``--autotune
+--scale-out``, ``--N-options`` entries above ``--N`` are allowed on the
+cluster backend::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --backend cluster --code matdot --K 2 --N 4 \
+        --workers 4 --chaos crash:1,sleep:0.01:0.05 --requests 4 \
+        --rows 16 --inner 64 --record trace.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --replay trace.json --code matdot --K 2 --N 4 \
+        --requests 4 --rows 16 --inner 64
+
+Speculative execution (``--speculate``, cluster backend): the scheduler
+watches the live event stream and re-dispatches a still-pending shard to a
+freshly leased backup worker when the straggler profile says it is unlikely
+to finish before the deadline relative to the marginal value of its
+resolution layer (``--hedge-threshold``).  First completion wins, losing
+copies are cancelled (counted separately from losses), and crashed workers'
+shards are re-queued to their replacements instead of abandoned.
+``--replicate r`` instead pins ``r-1`` up-front copies of every shard — the
+classic replication baseline the paper compares SAC against.
 
 Flags are grouped; illegal combinations are reported together up front,
 and the effective config is emitted as one ``[serve] config {...}`` JSON
@@ -59,12 +96,14 @@ import torch
 
 from repro_torch.core import (EpsApproxMatDotCode, GroupSACCode,
                               LayerSACCode, MatDotCode, x_complex)
+from repro_torch.device import resolve_device
 from repro_torch.ioutil import write_json_atomic
 from repro_torch.serving import (DecodeWeightCache, MasterScheduler,
                                  ServeConfig, make_backend, serve_request)
 
 __all__ = ["CODES", "ServeReport", "build_code", "build_parser",
-           "validate_args", "serve_request", "run_serve", "main"]
+           "draw_operands", "validate_args", "serve_request", "run_serve",
+           "main"]
 
 
 def _auto_groups(K: int) -> list[int]:
@@ -182,14 +221,52 @@ def build_parser() -> argparse.ArgumentParser:
                     help="where operands, products and decode state live")
 
     fleet = ap.add_argument_group(
-        "fleet", "execution backend and fleet sizing")
-    fleet.add_argument("--backend", default="device",
-                       choices=("device", "sim"),
-                       help="worker products in the CUDA kernels (device) or "
-                       "in float64 (sim, the oracle)")
+        "fleet", "execution backend and worker-pool sizing")
+    fleet.add_argument("--backend", default=None,
+                       choices=("device", "sim", "cluster", "replay"),
+                       help="worker products in the CUDA kernels (device, "
+                       "the default), in float64 (sim, the oracle), on a "
+                       "real multiprocess worker pool (cluster), or from a "
+                       "recorded cluster trace (replay, the default with "
+                       "--replay)")
+    fleet.add_argument("--workers", type=int, default=4,
+                       help="cluster: starting worker-pool size (grows on "
+                       "demand — the scale-out path)")
+    fleet.add_argument("--spares", type=int, default=0,
+                       help="cluster: warm spare workers kept after "
+                       "releases")
+    fleet.add_argument("--grace", type=float, default=2.0,
+                       help="cluster: seconds past the last deadline before "
+                       "pending shards are abandoned (hang bound)")
     fleet.add_argument("--fleet", type=int, default=None,
                        help="dispatch only the first N encode shards of the "
                        "starting code (operator override)")
+    fleet.add_argument("--compute", default=None,
+                       choices=("device", "numpy"),
+                       help="cluster/replay: shard products in the "
+                       "coded_matmul kernel on each worker's card (device, "
+                       "the default; its plain version with --device cpu) "
+                       "or in the reference's float64 numpy einsum")
+    fleet.add_argument("--transport", default="local",
+                       choices=("local", "socket"),
+                       help="cluster: master<->worker plumbing — pipes + "
+                       "shared memory, or length-prefixed frames over TCP")
+    fleet.add_argument("--hosts", default=None,
+                       help="cluster --transport socket: comma-separated "
+                       "listener addresses (default 127.0.0.1,127.0.0.1 — "
+                       "two localhost 'hosts')")
+
+    chaos = ap.add_argument_group(
+        "chaos", "fault injection and trace record/replay")
+    chaos.add_argument("--chaos", default=None,
+                       help="cluster: injected perturbations, e.g. "
+                       "'crash:1,sleep:0.01:0.05,slow:2:0.3,hang:1'")
+    chaos.add_argument("--record", default=None, metavar="PATH",
+                       help="cluster: save the measured completion trace as "
+                       "JSON for --replay")
+    chaos.add_argument("--replay", default=None, metavar="PATH",
+                       help="re-serve a recorded cluster trace through the "
+                       "simulated product path (bit-identical decode)")
 
     tune = ap.add_argument_group(
         "autotune", "online straggler-profile refits and code switches")
@@ -215,7 +292,8 @@ def build_parser() -> argparse.ArgumentParser:
                       "instead of max accuracy at pinned N")
     tune.add_argument("--scale-out", action="store_true",
                       help="let a drift-detected tail worsening request a "
-                      "larger fleet (up to --N)")
+                      "larger fleet (with --backend cluster the pool "
+                      "acquires the workers)")
     tune.add_argument("--N-options", default=None,
                       help="comma-separated candidate fleet sizes for the "
                       "cost axis (default: pinned --N)")
@@ -223,12 +301,32 @@ def build_parser() -> argparse.ArgumentParser:
                       help="JSON snapshot of fitted profiles + sweep "
                       "caches; loaded at start if present, saved on exit")
 
+    spec = ap.add_argument_group(
+        "speculation", "mid-batch shard re-dispatch (hedging) and the "
+        "pinned-replication baseline")
+    spec.add_argument("--speculate", action="store_true",
+                      help="re-dispatch likely-late shards to backup "
+                      "workers mid-batch; first completion wins, crashed "
+                      "workers' shards re-queue to their replacements")
+    spec.add_argument("--hedge-threshold", type=float, default=0.5,
+                      help="hedge when P(finish by deadline) < threshold × "
+                      "layer value of the shard's next completion")
+    spec.add_argument("--max-speculations", type=int, default=None,
+                      help="cap on speculative launches per batch "
+                      "(default: unbounded)")
+    spec.add_argument("--replicate", type=int, default=1,
+                      help="pin r-1 up-front copies of every shard — the "
+                      "replication baseline, no hedging policy in the loop")
+    spec.add_argument("--max-requeue", type=int, default=3,
+                      help="dispatch attempts per shard before a crashed "
+                      "chain is declared lost (--speculate)")
+
     obs = ap.add_argument_group(
         "observability", "metrics registry, per-shard trace export, and "
         "the crash flight recorder")
     obs.add_argument("--metrics-out", default=None, metavar="PATH",
-                     help="save a JSON metrics snapshot (serve and cache "
-                     "counters) on exit")
+                     help="save a JSON metrics snapshot (pool/transport/"
+                     "backend/serve/cache counters) on exit")
     obs.add_argument("--trace-out", default=None, metavar="PATH",
                      help="save per-shard spans + accuracy-milestone "
                      "instants as Chrome trace-event JSON (open in "
@@ -240,8 +338,8 @@ def build_parser() -> argparse.ArgumentParser:
     obs.add_argument("--sample-interval", type=float, default=None,
                      metavar="SECONDS",
                      help="tick a ring-buffer time-series sampler from the "
-                     "event loop every SECONDS (on the virtual serve "
-                     "clock)")
+                     "event loop every SECONDS (virtual clock on modeled "
+                     "backends, wall clock on the cluster)")
     obs.add_argument("--metrics-port", type=int, default=None,
                      metavar="PORT",
                      help="serve live Prometheus text (/metrics) and a "
@@ -260,9 +358,18 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _backend_name(args) -> str:
+    """The backend ``--backend`` names, or its default: ``replay`` with
+    ``--replay``, else ``device``."""
+    if args.backend is not None:
+        return args.backend
+    return "replay" if args.replay is not None else "device"
+
+
 def _collect_problems(args) -> list[str]:
     """Every illegal flag combination at once, with actionable messages."""
     problems = []
+    backend = _backend_name(args)
     if args.inner % args.K != 0:
         problems.append(f"--inner {args.inner} must be divisible by --K "
                         f"{args.K} (the contraction dim splits into K "
@@ -293,6 +400,55 @@ def _collect_problems(args) -> list[str]:
     elif args.burn_window <= 0:
         problems.append(f"--burn-window must be > 0; got "
                         f"{args.burn_window}")
+    for flag, name in ((args.chaos is not None, "--chaos"),
+                       (args.record is not None, "--record"),
+                       (args.spares != 0, "--spares"),
+                       (args.transport != "local", "--transport socket"),
+                       (args.hosts is not None, "--hosts")):
+        if flag and backend != "cluster":
+            problems.append(f"{name} requires --backend cluster")
+    if backend == "cluster":
+        if args.workers < 0 or args.spares < 0:
+            problems.append(f"--workers and --spares must be >= 0; got "
+                            f"{args.workers}, {args.spares}")
+        if args.grace <= 0:
+            problems.append(f"--grace must be > 0; got {args.grace}")
+    if args.hosts is not None and args.transport != "socket":
+        problems.append("--hosts requires --transport socket (the local "
+                        "transport has no listener addresses)")
+    # device compute runs on the cluster's worker processes, or during
+    # replay (ReplayBackend recomputes each shard through the same kernel
+    # path) — the modeled backends have their own product story
+    if args.compute == "device" and backend not in ("cluster", "replay"):
+        problems.append("--compute device requires --backend cluster or "
+                        "--replay PATH (re-serving a device-mode trace)")
+    if backend == "replay" and args.replay is None:
+        problems.append("--backend replay needs --replay PATH (the "
+                        "recorded cluster trace)")
+    if args.replay is not None and backend not in ("replay", "sim"):
+        problems.append(f"--replay re-serves the trace through the "
+                        f"simulated product path; drop --backend "
+                        f"{backend}")
+    # speculation group: hedging needs real in-flight shards (cluster) or a
+    # recorded trace of a speculative run (replay); modeled backends have
+    # nothing to re-dispatch
+    if args.speculate and backend != "cluster" and args.replay is None:
+        problems.append("--speculate requires --backend cluster (live "
+                        "hedging) or --replay PATH (re-serving a recorded "
+                        "speculative trace)")
+    if args.replicate < 1:
+        problems.append(f"--replicate must be >= 1; got {args.replicate}")
+    elif args.replicate > 1 and backend != "cluster":
+        problems.append("--replicate requires --backend cluster (pinned "
+                        "copies run on real backup workers)")
+    if not args.speculate:
+        if args.hedge_threshold != 0.5:
+            problems.append("--hedge-threshold requires --speculate")
+        if args.max_speculations is not None:
+            problems.append("--max-speculations requires --speculate")
+    if args.max_requeue < 1:
+        problems.append(f"--max-requeue must be >= 1; got "
+                        f"{args.max_requeue}")
     for flag, name in ((args.drift != "none", "--drift"),
                        (args.per_class, "--per-class"),
                        (args.cost_aware, "--cost-aware"),
@@ -311,26 +467,49 @@ def _collect_problems(args) -> list[str]:
             problems.append(f"--N-options must be comma-separated "
                             f"integers; got {args.N_options!r}")
         else:
-            if any(n < 1 or n > args.N for n in N_options):
+            # the cluster backend has a worker acquisition story, so fleet
+            # candidates above the starting --N are servable (the pool
+            # grows); modeled backends stay bounded by the starting fleet
+            if backend == "cluster":
+                if any(n < 1 for n in N_options):
+                    problems.append(f"every --N-options entry must be >= 1; "
+                                    f"got {list(N_options)}")
+            elif any(n < 1 or n > args.N for n in N_options):
                 problems.append(f"every --N-options entry must be in [1, "
                                 f"--N {args.N}] on backend "
-                                f"{args.backend!r} (acquiring workers past "
-                                f"--N needs the worker-process cluster); "
-                                f"got {list(N_options)}")
+                                f"{backend!r} (only the cluster backend can "
+                                f"acquire workers past --N); got "
+                                f"{list(N_options)}")
     return problems
 
 
-def _effective_config(args, deadlines) -> str:
-    """One JSON line of the effective configuration.
+def _compute_kind(args) -> str:
+    """The cluster/replay shard compute: ``--compute``, else ``device``."""
+    return args.compute or "device"
 
-    The reference's keys, with the cluster flags this port does not take at
-    their fixed values, plus ``device``."""
+
+def _effective_config(args, deadlines) -> str:
+    """One JSON line of the effective configuration: the reference's keys,
+    plus ``device``."""
+    backend = _backend_name(args)
     cfg = {"code": args.code, "K": args.K, "N": args.N,
-           "backend": args.backend, "requests": args.requests,
-           "batch_size": args.batch_size, "decoder": args.decoder,
-           "deadlines": list(deadlines), "seed": args.seed,
-           "stream": bool(args.stream), "autotune": bool(args.autotune),
-           "speculate": False, "replicate": 1, "device": args.device}
+           "backend": backend if args.replay is None else "replay",
+           "requests": args.requests, "batch_size": args.batch_size,
+           "decoder": args.decoder, "deadlines": list(deadlines),
+           "seed": args.seed, "stream": bool(args.stream),
+           "autotune": bool(args.autotune),
+           "speculate": bool(args.speculate),
+           "replicate": args.replicate, "device": args.device}
+    if backend == "cluster":
+        cfg.update(workers=args.workers, spares=args.spares,
+                   chaos=args.chaos, grace=args.grace,
+                   compute=_compute_kind(args), transport=args.transport)
+    if args.replay is not None:
+        cfg.update(compute=_compute_kind(args))
+    if args.speculate:
+        cfg.update(hedge_threshold=args.hedge_threshold,
+                   max_speculations=args.max_speculations,
+                   max_requeue=args.max_requeue)
     if args.autotune:
         cfg.update(target_error=args.target_error,
                    profile_window=args.profile_window, drift=args.drift)
@@ -353,7 +532,7 @@ class ServeReport:
     summary: dict = field(default_factory=dict)    # wall / rps / deadlines
     cache: dict | None = None         # decode-weight cache stats
     autotune: dict | None = None      # restore / retune / save trail
-    cluster: dict | None = None       # always None: no cluster in the port
+    cluster: dict | None = None       # pool + speculation + record stats
     observability: dict | None = None  # metrics / trace / flight paths
 
     def to_dict(self) -> dict:
@@ -390,16 +569,20 @@ def _scalar(x):
     return x.item() if hasattr(x, "item") else x
 
 
-def run_serve(args) -> ServeReport:
+def run_serve(args, operands=None) -> ServeReport:
     """Run one serve configuration end to end; no output except aborts.
 
     The programmatic core behind :func:`main`: builds the backend /
     scheduler / policies from a parsed-args namespace, runs the request
-    batch, and returns a :class:`ServeReport`.  Side-effect files
-    (--record, --metrics-out, --trace-out, --profile-state) are written
+    batch, and returns a :class:`ServeReport`.  ``operands`` are the
+    ``--requests`` ``(A, B)`` pairs to serve; by default they are drawn
+    from ``--seed``, and a caller that serves one job several times passes
+    the list it drew once (``list(draw_operands(args))``).  Side-effect
+    files (--record, --metrics-out, --trace-out, --profile-state) are written
     here; only their paths land in the report.  Raises ``SystemExit`` with
     the same actionable messages as the CLI for invalid configurations, and
-    ``RuntimeError`` when ``--device cuda`` finds no card.
+    ``RuntimeError`` when ``--device cuda`` finds no card.  A cluster
+    backend's workers are shut down on every exit path.
     """
     problems = _collect_problems(args)
     if problems:
@@ -411,9 +594,9 @@ def run_serve(args) -> ServeReport:
     config.update(rows=args.rows, inner=args.inner,
                   straggler_frac=args.straggler_frac,
                   cache_size=args.cache_size, class_cache=args.class_cache)
+    backend_name = _backend_name(args)
     # the device first: without a card this raises before anything starts
-    backend = make_backend(args.backend, device=args.device,
-                           straggler_frac=args.straggler_frac)
+    resolve_device(args.device)
     # observability wiring: a live registry when anything will read it
     # (the flight recorder snapshots it into every dump, the sampler /
     # exporter / burn tracker read it live); None otherwise so every
@@ -451,6 +634,63 @@ def run_serve(args) -> ServeReport:
             else NULL_SAMPLER,
             burn=burn if burn is not None else NULL_BURN,
             port=args.metrics_port).start()
+    try:
+        backend = _make_serve_backend(args, backend_name, registry)
+    except BaseException:
+        if exporter is not None:
+            exporter.stop()
+        raise
+    try:
+        return _serve_on(args, operands, backend, backend_name, code,
+                         deadlines, config, registry, tracer, flight,
+                         sampler, burn, exporter, live_obs)
+    finally:
+        if backend_name == "cluster":
+            backend.close()
+
+
+def _make_serve_backend(args, name: str, registry):
+    """The execution backend the CLI flags describe."""
+    if args.replay is not None:
+        from repro_torch.cluster import TraceRecording
+        try:
+            recording = TraceRecording.load(args.replay)
+        except (OSError, ValueError, KeyError) as e:
+            raise SystemExit(f"[serve] --replay {args.replay}: {e}")
+        return make_backend("replay", recording=recording,
+                            compute=_compute_kind(args), device=args.device)
+    if name == "cluster":
+        hosts = (tuple(h.strip() for h in args.hosts.split(","))
+                 if args.hosts is not None else None)
+        try:
+            return make_backend(
+                "cluster", workers=args.workers, spares=args.spares,
+                chaos=args.chaos, seed=args.seed,
+                record=args.record is not None, grace=args.grace,
+                speculate=args.speculate, replicate=args.replicate,
+                max_requeue=args.max_requeue, compute=_compute_kind(args),
+                transport=args.transport, hosts=hosts, metrics=registry,
+                device=args.device)
+        except ValueError as e:
+            raise SystemExit(f"[serve] invalid arguments:\n  {e}")
+    return make_backend(name, device=args.device,
+                        straggler_frac=args.straggler_frac)
+
+
+def draw_operands(args):
+    """Yield the ``--requests`` ``(A, B)`` pairs a serve draws from
+    ``--seed``, one at a time."""
+    rng = np.random.default_rng(args.seed)
+    for _ in range(args.requests):
+        A = rng.standard_normal((args.rows, args.inner))
+        B = rng.standard_normal((args.inner, args.rows))
+        yield A, B
+
+
+def _serve_on(args, operands, backend, backend_name, code, deadlines,
+              config, registry, tracer, flight, sampler, burn, exporter,
+              live_obs) -> ServeReport:
+    """Serve the CLI's requests on a built backend (see :func:`run_serve`)."""
     cfg = ServeConfig(deadlines=deadlines, stream=args.stream,
                       batch_size=args.batch_size, beta_mode=args.beta,
                       decoder=args.decoder, seed=args.seed)
@@ -476,9 +716,16 @@ def run_serve(args) -> ServeReport:
             window=args.profile_window, seed=args.seed, drift=drift,
             drift_kw=drift_kw, per_class=args.per_class,
             cost_aware=args.cost_aware, scale_out=args.scale_out)
+    speculation = None
+    if args.speculate:
+        from repro_torch.design import SpeculationPolicy
+        speculation = SpeculationPolicy(
+            threshold=args.hedge_threshold,
+            max_per_batch=args.max_speculations)
     sched = MasterScheduler(code, backend, cfg, cache, policy=policy,
-                            metrics=registry, tracer=tracer, flight=flight,
-                            sampler=sampler, burn=burn)
+                            speculation=speculation, metrics=registry,
+                            tracer=tracer, flight=flight, sampler=sampler,
+                            burn=burn)
     tune_report = None
     if args.autotune:
         tune_report = {"restored": False, "restored_from": None,
@@ -509,19 +756,30 @@ def run_serve(args) -> ServeReport:
             raise SystemExit(f"[serve] invalid arguments:\n  --fleet: {e}")
         fleet_of = sched.code.N
 
-    rng = np.random.default_rng(args.seed)
     code_report = {"name": args.code, "K": args.K, "N": args.N,
                    "R": code.recovery_threshold,
                    "first": code.first_threshold,
                    "straggler_frac": args.straggler_frac,
-                   "decoder": args.decoder, "backend": args.backend,
+                   "decoder": args.decoder,
+                   "backend": "sim" if args.replay is not None
+                   else backend_name,
                    "batch": args.batch_size, "fleet": args.fleet,
                    "fleet_of": fleet_of}
-    for _ in range(args.requests):
-        A = rng.standard_normal((args.rows, args.inner))
-        B = rng.standard_normal((args.inner, args.rows))
+    if operands is None:
+        operands = draw_operands(args)        # each pair submitted as drawn
+    elif len(operands) != args.requests:
+        raise ValueError(f"{len(operands)} operand pairs for --requests "
+                         f"{args.requests}")
+    for A, B in operands:
         sched.submit(A, B)
 
+    startup_s = None
+    if backend_name == "cluster":
+        # the serve wall starts once the starting fleet is up: process
+        # spawn (and a device worker's CUDA start) is not serving time
+        t_up = time.time()
+        backend.pool.wait_ready(timeout=backend.pool.ready_timeout)
+        startup_s = time.time() - t_up
     if sched.device.type == "cuda":
         torch.cuda.synchronize(sched.device)
     t0 = time.time()
@@ -611,6 +869,34 @@ def run_serve(args) -> ServeReport:
             save_state(policy, args.profile_state)
             tune_report.update(state_saved=args.profile_state,
                                classes_saved=len(policy.classes()))
+    cluster_report = None
+    if backend_name == "cluster":
+        pool = backend.pool
+        ps = {k: int(v) for k, v in pool.stats.items()}
+        cluster_report = {"pool": ps, "active": int(pool.size),
+                          "spare": int(pool.spares),
+                          "losses": [[int(b), int(s), why]
+                                     for b, s, why in sched.losses],
+                          "speculation": None, "recorded": None,
+                          "startup_s": startup_s}
+        if args.speculate or args.replicate > 1:
+            by_reason = {}
+            for _, _, why in sched.speculations:
+                by_reason[why] = by_reason.get(why, 0) + 1
+            cluster_report["speculation"] = {
+                "launches": len(sched.speculations),
+                "by_reason": by_reason,
+                "requeued": ps["shards_requeued"],
+                "backups_leased": ps["backups_leased"],
+                "cancelled": ps["shards_cancelled"],
+                "duplicates_reaped": ps["duplicates_reaped"]}
+        if args.record is not None:
+            backend.recording.save(args.record)
+            cluster_report["recorded"] = {"path": args.record,
+                                          "batches": len(backend.recording)}
+        backend.close()
+        # the workers' own launch counts, from their shutdown replies
+        cluster_report["kernel_launches"] = pool.kernel_launches()
     obs_report = None
     if (args.metrics_out is not None or tracer is not None
             or flight is not None or live_obs):
@@ -639,7 +925,8 @@ def run_serve(args) -> ServeReport:
         exporter.stop()
     return ServeReport(config=config, code=code_report, requests=requests,
                        summary=summary, cache=cache_report,
-                       autotune=tune_report, observability=obs_report)
+                       autotune=tune_report, cluster=cluster_report,
+                       observability=obs_report)
 
 
 def _render_report(rep: ServeReport) -> None:
@@ -660,10 +947,16 @@ def _render_report(rep: ServeReport) -> None:
     tune_s = (f" autotune(target={cfg['target_error']:g}, "
               f"window={cfg['profile_window']}, "
               f"space={tune['space']})" if tune is not None else "")
+    extra = ""
+    if cfg["backend"] == "cluster":
+        extra = (f" workers={cfg['workers']} spares={cfg['spares']} "
+                 f"chaos={cfg['chaos'] or 'none'} compute={cfg['compute']} "
+                 f"transport={cfg['transport']} (deadlines are wall-clock "
+                 "seconds)")
     print(f"[serve] code={cd['name']} K={cd['K']} N={cd['N']} "
           f"R={cd['R']} first={cd['first']} "
           f"straggler_frac={cd['straggler_frac']} decoder={cd['decoder']} "
-          f"backend={cd['backend']} batch={cd['batch']}{tune_s} "
+          f"backend={cd['backend']} batch={cd['batch']}{tune_s}{extra} "
           f"device={cfg['device']}")
     for req in rep.requests:
         line = " | ".join(
@@ -713,6 +1006,41 @@ def _render_report(rep: ServeReport) -> None:
         if tune["state_saved"] is not None:
             print(f"[serve] saved profile state to {tune['state_saved']} "
                   f"({tune['classes_saved']} class(es))")
+    if rep.cluster is not None:
+        cl, ps = rep.cluster, rep.cluster["pool"]
+        print(f"[serve] cluster pool: {ps['spawned']} spawned, "
+              f"{ps['acquired']} acquired, {ps['released']} released, "
+              f"{ps['replaced']} replaced ({ps['crashed']} crashed, "
+              f"{ps['retired']} retired); {cl['active']} active + "
+              f"{cl['spare']} spare at exit")
+        # shard-outcome tallies print unconditionally: cancellations and
+        # reaped duplicates happen outside --speculate too (crash promotes
+        # a racing copy, replication), and audits shouldn't need a rerun
+        print(f"[serve] pool shards: {ps['shards_lost']} lost, "
+              f"{ps['shards_cancelled']} cancelled, "
+              f"{ps['duplicates_reaped']} duplicate(s) reaped, "
+              f"{ps['shards_requeued']} re-queued")
+        if cl["losses"]:
+            lost = ", ".join(f"batch {b} shard {s} ({why})"
+                             for b, s, why in cl["losses"])
+            print(f"[serve] lost shards: {lost}")
+        if cl["speculation"] is not None:
+            sp = cl["speculation"]
+            detail = ", ".join(f"{n} {why}" for why, n
+                               in sorted(sp["by_reason"].items())) or "none"
+            print(f"[serve] re-dispatch: {sp['launches']} "
+                  f"speculative launch(es) ({detail}); "
+                  f"{sp['requeued']} re-queued, "
+                  f"{sp['backups_leased']} backup(s) leased")
+            print(f"[serve] cancelled: {sp['cancelled']} first-wins "
+                  f"loser(s), {sp['duplicates_reaped']} duplicate "
+                  f"result(s) reaped")
+        if cl["recorded"] is not None:
+            print(f"[serve] recorded {cl['recorded']['batches']} batch "
+                  f"trace(s) to {cl['recorded']['path']}")
+        launches = ", ".join(f"{n} {k}" for k, n in
+                             sorted(cl["kernel_launches"].items()))
+        print(f"[serve] worker kernel launches: {launches or 'none'}")
     if rep.observability is not None:
         ob = rep.observability
         if ob["metrics_out"] is not None:

@@ -18,6 +18,11 @@ time-ordered event sequence:
   through the hand-written kernels (:mod:`repro_torch.kernels`); complex
   evaluation points take the four-GEMM path.  Latencies are drawn as the
   reference ``DeviceBackend`` draws them.
+* :class:`repro_torch.cluster.backend.ClusterBackend`
+  (``make_backend("cluster")``) — real worker processes; the event stream
+  is *measured*, and supports mid-batch speculative re-dispatch.
+* ``make_backend("replay")`` — re-serves a recorded cluster trace through
+  the simulated product path, bit-identically.
 """
 from __future__ import annotations
 
@@ -70,6 +75,9 @@ class SyntheticDispatch:
     def outstanding(self) -> int:
         return len(self._events) - self._cursor
 
+    def set_abandon(self, t: float | None) -> None:
+        """No-op: a modeled stream already encodes losses as non-finite."""
+
     def next_event(self, timeout: float | None = None) -> ShardEvent | None:
         if self._cursor >= len(self._events):
             return None
@@ -89,10 +97,14 @@ class ExecutionBackend:
     outputs, a tensor on :attr:`device`) and ``draw_latencies`` (one
     completion-time row per batch, drawn with the scheduler's numpy rng)
     and inherit ``dispatch_batch``.  :attr:`device` is where the products
-    land, and so where the scheduler keeps operands and decode state.
+    land, and so where the scheduler keeps operands and decode state.  Live
+    backends (the cluster) override ``dispatch_batch`` wholesale and ignore
+    ``rng``: their completion events are measured, not drawn; they set
+    ``live = True`` so open-loop serving paces arrivals on the wall clock.
     """
 
     name = "abstract"
+    live = False                   # wall-clocked event stream?
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -299,14 +311,25 @@ class TorchDeviceBackend(ExecutionBackend):
         return shifted_exp_times(rng, N, **self.latency_kw)
 
 
-_BACKENDS = {"sim": SimulatedBackend, "device": TorchDeviceBackend}
+def _make_cluster(**kw):
+    from ..cluster.backend import ClusterBackend      # lazy: multiprocessing
+    return ClusterBackend(**kw)
+
+
+def _make_replay(**kw):
+    from ..cluster.backend import ReplayBackend
+    return ReplayBackend(**kw)
+
+
+_BACKENDS = {"sim": SimulatedBackend, "device": TorchDeviceBackend,
+             "cluster": _make_cluster, "replay": _make_replay}
 
 BACKEND_NAMES = tuple(sorted(_BACKENDS))
 
 
 def make_backend(name: str, **kw) -> ExecutionBackend:
-    """``sim`` | ``device`` — an unknown name is rejected with the valid
-    list."""
+    """``sim`` | ``device`` | ``cluster`` | ``replay`` — an unknown name is
+    rejected with the valid list."""
     build = _BACKENDS.get(name)
     if build is None:
         raise unknown_name("backend", name, BACKEND_NAMES)

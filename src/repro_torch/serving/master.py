@@ -14,9 +14,24 @@ decoders and the squared relative error ``‖est − C‖² / ‖C‖²`` are al
 computed there, so on the card nothing but scalars reaches the host.  Host
 control — queue, admission, latency clock, policy — stays in float64 numpy.
 
-Timebase: completion times and deadlines live on the simulated latency
-clock.  The event ordering honours the ``merged_event_stream`` contract
-(time order; ties resolve completion-before-tick).
+Timebase: on modeled backends, completion times and deadlines live on the
+simulated latency clock; on the cluster backend
+(:class:`~repro_torch.cluster.backend.ClusterBackend`) the same loop
+consumes a *live* measured stream and deadlines become wall-clock seconds
+from dispatch.  The event ordering honours the ``merged_event_stream``
+contract (time order; ties resolve completion-before-tick), which is what
+makes a recorded cluster run replay bit-identically through the simulated
+path.
+
+Speculative re-dispatch (``speculation=``): on a backend whose dispatch
+handle supports mid-batch :meth:`speculate` (the cluster), the loop watches
+the live stream and — when the hedging policy
+(:class:`repro_torch.design.policy.SpeculationPolicy`) says a pending shard
+is unlikely to finish before the deadline relative to the marginal value of
+its resolution layer — re-dispatches the shard to a warm spare.  First
+completion wins; duplicates are cancelled and counted separately from
+losses; crashed workers' shards are re-queued by the dispatch instead of
+abandoned.
 
 Open-loop serving (:meth:`MasterScheduler.run_open`): timestamped arrivals
 (:mod:`repro_torch.serving.loadgen` workloads) interleave with completions
@@ -28,9 +43,8 @@ its accuracy SLO (``target``).  Tie rule extending the stream contract: at
 equal timestamps, completions (and the dispatches they trigger) precede
 arrivals.  With an unbounded FIFO queue and no per-request SLOs the open
 loop reduces bit-identically to :meth:`MasterScheduler.run`.  Arrivals live
-on the virtual clock of the modeled backends; wall-clock pacing
-(``realtime``) and speculative re-dispatch need a live backend, which the
-port does not have yet (the worker-process cluster).
+on the virtual clock of the modeled backends and on the wall clock of a
+live one (``realtime``).
 """
 from __future__ import annotations
 
@@ -170,13 +184,14 @@ class MasterScheduler:
     def __init__(self, code: CDCCode, backend: ExecutionBackend | None = None,
                  config: ServeConfig | None = None,
                  cache: DecodeWeightCache | None = _DEFAULT_CACHE,
-                 policy=None, metrics=None, tracer=None, flight=None,
-                 sampler=None, burn=None):
+                 policy=None, speculation=None, metrics=None, tracer=None,
+                 flight=None, sampler=None, burn=None):
         self.code = code
         self.backend = backend if backend is not None else SimulatedBackend()
         self.config = config if config is not None else ServeConfig()
         self.cache = DecodeWeightCache() if cache is _DEFAULT_CACHE else cache
         self.policy = policy
+        self.speculation = speculation         # SpeculationPolicy (or None)
         self.device = self.backend.device
         self.metrics = metrics if metrics is not None else NULL_REGISTRY
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -218,12 +233,18 @@ class MasterScheduler:
         self.class_codes: dict = {}            # RequestClass -> code override
         self.switches: list[tuple[int, str, str]] = []
         self.losses: list[tuple[int, int, str]] = []   # (batch#, shard, why)
+        self.speculations: list[tuple[int, int, str]] = []   # re-dispatches
         self._batches_served = 0
         # open-loop admission bookkeeping: shed decisions and the queue-depth
         # time series ((t, depth) samples at every admission/dispatch on the
         # global serve clock — the registry's histogram mirrors the depths)
         self.shed: list[tuple[str, float]] = []        # (tenant, arrival)
         self.depth_series: list[tuple[float, int]] = []
+        # hedge-trigger observation window: recent per-batch completion rows
+        # feed a small straggler fit so the speculation policy has a
+        # P(finish-by-deadline) estimate after the first served batch
+        self._hedge_rows: deque = deque(maxlen=64)
+        self._hedge_fit: tuple[int, object] | None = None
 
     # --------------------------------------------------------------- intake
     def submit(self, A, B, *,
@@ -436,11 +457,12 @@ class MasterScheduler:
         fleet frees up — the open-loop regime where
         queueing collapse is visible.
 
-        Clock: arrivals and completions share one *virtual* clock (the
-        dispatch's synthetic event times offset by the batch's dispatch
-        instant), so runs are deterministic and cost no wall time.
-        ``realtime=True`` (wall-clock pacing) needs a live backend, which
-        the port does not have yet: it raises ``NotImplementedError``.
+        Clock: on modeled backends arrivals and completions share one
+        *virtual* clock (the dispatch's synthetic event times offset by the
+        batch's dispatch instant), so runs are deterministic and cost no
+        wall time; on a live backend (``backend.live``) the global clock is
+        wall seconds from the first arrival.  ``realtime=None`` picks
+        automatically.
 
         Tie rule, extending the ``merged_event_stream`` contract: at equal
         timestamps completions are ingested first, then the dispatches
@@ -464,19 +486,23 @@ class MasterScheduler:
                for r in reqs) and not self.config.track_errors:
             raise ValueError("open-loop accuracy SLOs (tenant target_error) "
                              "require config.track_errors=True")
-        if realtime:
-            raise NotImplementedError(
-                "run_open(realtime=True) paces arrivals on the wall clock "
-                "against a live backend; the port's backends are modeled "
-                "(virtual clock) until the worker-process cluster is ported")
+        if realtime is None:
+            realtime = bool(getattr(self.backend, "live", False))
         feed = _ArrivalFeed(self, reqs)
         results: list[RequestResult] = []
         per_class = getattr(self.policy, "per_class", False)
         t_now = 0.0
+        t0_wall = time.monotonic() if realtime else None
         while feed.more or self._queue:
             if not self._queue:
-                # idle fleet: jump to the next arrival
-                t_now = max(t_now, feed.next_time)
+                # idle fleet: jump (or sleep) to the next arrival
+                if realtime:
+                    delay = feed.next_time - (time.monotonic() - t0_wall)
+                    if delay > 0:
+                        time.sleep(delay)
+                    t_now = time.monotonic() - t0_wall
+                else:
+                    t_now = max(t_now, feed.next_time)
                 self.sampler.tick(t_now)
                 feed.admit_until(t_now)
                 continue
@@ -494,7 +520,7 @@ class MasterScheduler:
             feed.admit_until(t_now)
             cls = self._class_of(batch[0]) \
                 if (self.policy is not None and per_class) else None
-            ctx = _OpenContext(feed, t_now)
+            ctx = _OpenContext(feed, t_now, realtime)
             results.extend(self._serve_batch(batch, cls, open_ctx=ctx))
             self._served += len(batch)
             t_now = ctx.t_release
@@ -645,12 +671,15 @@ class MasterScheduler:
         """The event loop over one dispatch's completion stream.
 
         The backend's ``dispatch_batch`` handle yields ``done`` / ``lost``
-        events; deadline ticks are merged in honoring the
-        ``merged_event_stream`` contract — a tick fires after any completion
-        carrying an earlier-or-equal timestamp, and once every shard is
-        resolved the remaining ticks flush with the final ``m``.  The handle
-        is a :class:`~repro_torch.serving.backends.SyntheticDispatch` whose
-        synthetic clock never blocks.
+        (and, under speculation, ``redispatch``) events; deadline ticks are
+        merged in honoring the ``merged_event_stream`` contract — events are
+        timestamped in strictly increasing arrival order, a tick fires after
+        any completion carrying an earlier-or-equal timestamp, and once
+        every shard is resolved the remaining ticks flush with the final
+        ``m``.  On modeled backends the handle is a
+        :class:`~repro_torch.serving.backends.SyntheticDispatch` whose
+        synthetic clock never blocks; on the cluster it is live and
+        wall-clocked.
 
         ``open_ctx`` (open-loop serving only) threads the arrival feed and
         the batch's dispatch instant through the walk: arrivals strictly
@@ -692,8 +721,24 @@ class MasterScheduler:
         self._g_inflight.set(Nf)
         self.sampler.tick(t_base)
         deadlines = sorted(float(d) for d in cfg.deadlines)
+        grace = float(getattr(self.backend, "grace", 2.0))
+        bound = deadlines[-1] if deadlines else 0.0
+        if open_ctx is not None:
+            # open loop: the hang bound must cover the batch's own latency
+            # SLOs, which live on the global clock, not the tick schedule
+            rels = [r.deadline - t_start for r in batch
+                    if r.deadline is not None]
+            bound = max([bound] + rels)
+        dispatch.set_abandon(bound + grace)
+        # hedging is live only when both sides opt in: a policy on the
+        # scheduler AND a dispatch that can actually re-dispatch mid-batch
+        poll = float(self.speculation.poll) \
+            if (self.speculation is not None
+                and hasattr(dispatch, "speculate")) else None
         R = code.recovery_threshold
         shard_times: dict[int, float] = {}
+        disp_t: dict[int, float] = {}      # shard -> latest redispatch time
+        timed_out = False                  # this batch abandoned shards
         m, di = 0, 0
         try:
             while di < len(deadlines) or dispatch.outstanding:
@@ -713,12 +758,29 @@ class MasterScheduler:
                                    deadlines[di], m, R, "deadline", bid)
                         di += 1
                         continue
+                if poll is not None:
+                    # cap the wait so hedge triggers are not delayed until
+                    # the next deadline tick
+                    timeout = poll if timeout is None else min(timeout, poll)
+                if open_ctx is not None and open_ctx.realtime \
+                        and open_ctx.feed.more:
+                    # live open loop: wake at the next arrival so admission
+                    # (and shed) decisions land near their true instants
+                    wait = max(open_ctx.feed.next_time - t_start
+                               - dispatch.elapsed(), 0.0) + 1e-3
+                    timeout = wait if timeout is None \
+                        else min(timeout, wait)
                 ev = dispatch.next_event(timeout=timeout)
                 if ev is None:
+                    # deadline reached or spurious wake — a natural point to
+                    # reconsider hedging the still-pending shards
                     self.sampler.tick(t_base + dispatch.elapsed())
                     if open_ctx is not None:
                         open_ctx.feed.admit_until(
                             t_start + dispatch.elapsed())
+                    if poll is not None:
+                        self._maybe_speculate(dispatch, code, m, shard_times,
+                                              deadlines)
                     continue
                 if open_ctx is not None:
                     # arrivals strictly earlier than this event are admitted
@@ -735,8 +797,12 @@ class MasterScheduler:
                     if ev.shard in shard_times:
                         continue           # defensive: dispatches dedup
                     m += 1
-                    self.tracer.done(bid, ev.shard, ev.worker, ev.t,
-                                     timings=getattr(ev, "timings", None))
+                    spec = getattr(ev, "speculative", False)
+                    self.tracer.done(
+                        bid, ev.shard, ev.worker, ev.t,
+                        start=disp_t.get(ev.shard, 0.0) if spec else 0.0,
+                        timings=getattr(ev, "timings", None),
+                        speculative=spec)
                     if self._m_on:
                         d0 = time.perf_counter()
                         for i, dec in enumerate(decoders):
@@ -760,8 +826,17 @@ class MasterScheduler:
                     if cfg.stream:
                         self._emit(batch, decoders, refs, results, ev.t, m,
                                    R, "event", bid)
-                else:                      # lost shard
+                elif ev.kind == "redispatch":      # speculation bookkeeping
+                    self.speculations.append((batch_no, ev.shard, ev.reason))
+                    disp_t[ev.shard] = ev.t
+                    self.tracer.redispatch(bid, ev.shard, ev.worker, ev.t,
+                                           ev.reason)
+                    self.flight.record("redispatch", batch=bid,
+                                       shard=ev.shard, worker=ev.worker,
+                                       t=ev.t, reason=ev.reason)
+                else:                      # lost shard (crash/timeout)
                     self.losses.append((batch_no, ev.shard, ev.reason))
+                    timed_out = timed_out or ev.reason == "timeout"
                     self.tracer.lost(bid, ev.shard, ev.worker, ev.t,
                                      ev.reason)
                     self.flight.record("lost", batch=bid, shard=ev.shard,
@@ -787,6 +862,9 @@ class MasterScheduler:
                         # run_open loop admits them after the dispatch this
                         # release triggers (which may free a queue slot)
                         break
+                if poll is not None:
+                    self._maybe_speculate(dispatch, code, m, shard_times,
+                                          deadlines)
         finally:
             if open_ctx is not None:
                 open_ctx.t_release = t_start + dispatch.elapsed()
@@ -814,8 +892,11 @@ class MasterScheduler:
                     self._h_ttfa.observe(first_t)
                 if exact_t is not None:
                     self._h_tta.observe(exact_t)
-        if self.flight.enabled and Nf > 0 and not shard_times:
-            self.flight.dump("all-shards-lost", self.metrics)
+        if self.flight.enabled:
+            if Nf > 0 and not shard_times:
+                self.flight.dump("all-shards-lost", self.metrics)
+            elif timed_out:
+                self.flight.dump("hang-abandon", self.metrics)
         # observed completions feed the straggler profile: a full row keeps
         # per-shard identity (the empirical fitter's column marginals); a
         # lossy batch degrades to the pooled sample instead of fabricating
@@ -828,9 +909,63 @@ class MasterScheduler:
             row = np.asarray(sorted(shard_times.values()), dtype=np.float64)
         if row.size:
             self._observe(row, len(batch), cls)
+            if self.speculation is not None:
+                self._hedge_rows.append(row)
         for res, dec in zip(results, decoders):
             res.decode_stats = dict(dec.stats)
         return results
+
+    # ------------------------------------------------------------ speculation
+    def _hedge_profile(self):
+        """Straggler fit over the recent observation window (or ``None``).
+
+        Refit lazily once per new batch row; lossy batches contribute their
+        pooled finite times (row shapes differ, so the per-shard stack
+        degrades to a flat sample — same rule as the adaptive policy's
+        fleet-switch path).
+        """
+        n = len(self._hedge_rows)
+        if n == 0:
+            return None
+        if self._hedge_fit is not None and self._hedge_fit[0] == n:
+            return self._hedge_fit[1]
+        from ..design.profile import StragglerProfile
+        rows = [np.asarray(r, dtype=np.float64).ravel()
+                for r in self._hedge_rows]
+        profile = None
+        try:
+            if all(r.shape == rows[0].shape for r in rows):
+                profile = StragglerProfile.fit(np.stack(rows))
+            else:
+                profile = StragglerProfile.fit(np.concatenate(rows))
+        except ValueError:
+            profile = None                 # too few observations to fit
+        self._hedge_fit = (n, profile)
+        return profile
+
+    def _maybe_speculate(self, dispatch, code: CDCCode, m: int,
+                         shard_times: dict, deadlines: list) -> None:
+        """Hedge still-pending shards whose completion odds fell too low."""
+        pol = self.speculation
+        pending = getattr(dispatch, "pending", None)
+        if not pending or not deadlines:
+            return
+        cap = pol.max_per_batch
+        elapsed = dispatch.elapsed()
+        profile = self._hedge_profile()
+        done_times = sorted(shard_times.values())
+        for shard in sorted(pending):
+            if cap is not None and dispatch.n_speculated >= cap:
+                return
+            if dispatch.copies_of(shard) > 1:
+                continue                   # one hedge per shard at a time
+            if pol.should_speculate(code=code, m_done=m, elapsed=elapsed,
+                                    deadline=deadlines[-1],
+                                    done_times=done_times,
+                                    n_pending=len(pending),
+                                    profile=profile, shard=shard):
+                if not dispatch.speculate(shard, reason="hedge"):
+                    return                 # no backup available: stop trying
 
     def _emit(self, batch, decoders, refs, results, t, m, R, kind,
               bid: int = 0) -> None:
@@ -890,14 +1025,15 @@ class _OpenContext:
 
     ``t_start`` anchors the dispatch's relative event times on the global
     serve clock; ``t_release`` is stamped when the fleet frees up (early
-    release or stream exhaustion).
+    release, stream exhaustion, or abandonment).
     """
 
-    __slots__ = ("feed", "t_start", "t_release")
+    __slots__ = ("feed", "t_start", "realtime", "t_release")
 
-    def __init__(self, feed: _ArrivalFeed, t_start: float):
+    def __init__(self, feed: _ArrivalFeed, t_start: float, realtime: bool):
         self.feed = feed
         self.t_start = t_start
+        self.realtime = realtime
         self.t_release = t_start
 
 

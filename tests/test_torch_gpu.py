@@ -618,3 +618,75 @@ def test_serve_cli_tune_and_observability_flags_on_the_card(cuda, extra,
         assert (tmp_path / name).exists()
     again = run_serve(build_parser().parse_args(argv)).to_dict()
     assert again["autotune"]["restored"]
+
+
+# ----------------------------------------------------------- the cluster
+
+def _cluster_reqs(rng, n, rows=40, inner=96):
+    return [(rng.standard_normal((rows, inner)),
+             rng.standard_normal((inner, rows))) for _ in range(n)]
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def test_cluster_on_the_card_matches_sim(cuda):
+    """Three worker processes, each computing its shard's products in the
+    ``coded_matmul`` kernel on the card (complex points: four launches a
+    shard), against the float64 oracle: 1e-5 relative per shard.  The
+    launch counts come from the workers' own counters."""
+    from repro_torch.cluster.backend import ClusterBackend
+    from repro_torch.core import MatDotCode, x_complex
+    from repro_torch.serving import SimulatedBackend
+    code = MatDotCode(2, 3, x_complex(3, 0.1))
+    As, Bs = zip(*_cluster_reqs(np.random.default_rng(2), 2))
+    with ClusterBackend(workers=3, seed=0, compute="device",
+                        device=cuda) as be:
+        assert be.pool.wait_ready(timeout=120.0), "workers never came up"
+        d = be.dispatch_batch(code, As, Bs)
+        d.drain(60.0)
+        got = d.product_stack()
+        d.finalize()
+    assert not d.lost and got.device.type == "cuda"
+    assert got.dtype == torch.complex64
+    want = SimulatedBackend(device=cuda).compute_products(code, As, Bs)
+    for shard in range(code.N):
+        assert _rel(got[:, shard].cpu().numpy(),
+                    want[:, shard].cpu().numpy()) < 1e-5, shard
+    assert be.pool.kernel_launches() == {"coded_matmul": 4 * code.N}
+
+
+def test_cluster_device_record_replay_bit_identity_on_the_card(cuda):
+    from repro_torch.cluster.backend import ClusterBackend, ReplayBackend
+    from repro_torch.core import LayerSACCode
+    from repro_torch.serving import MasterScheduler, ServeConfig
+    code = LayerSACCode(2, 4, base="ortho", eps=6.25e-3)
+    reqs = _cluster_reqs(np.random.default_rng(6), 4)
+    cfg = ServeConfig(deadlines=(0.05, 0.2, 1.0), stream=True, batch_size=2,
+                      seed=0)
+
+    def serve(backend):
+        sched = MasterScheduler(code, backend, cfg)
+        for A, B in reqs:
+            sched.submit(A, B)
+        return [[(a.t, a.m, a.rel_err, a.kind) for a in r.answers]
+                for r in sched.run()]
+
+    with ClusterBackend(workers=4, seed=1, chaos="sleep:0.005:0.02",
+                        record=True, compute="device", device=cuda) as be:
+        live = serve(be)
+        rec = be.recording
+    assert len(rec) == 2
+    assert live == serve(ReplayBackend(rec, compute="device", device=cuda))
+    assert be.pool.kernel_launches()["coded_matmul"] >= 2 * code.N
+
+
+def test_cluster_worker_that_cannot_see_the_card_fails(cuda, monkeypatch):
+    """A device worker with no visible card reports it and the pool raises:
+    the worker never computes on the CPU instead."""
+    from repro_torch.cluster.backend import ClusterBackend
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    with ClusterBackend(workers=1, compute="device", device=cuda) as be:
+        with pytest.raises(RuntimeError, match="failed to start.*no CUDA"):
+            be.pool.wait_ready(timeout=120.0)

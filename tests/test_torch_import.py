@@ -18,7 +18,10 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.kernels",
            "repro_torch.models", "repro_torch.runtime.steps",
            "repro_torch.configs", "repro_torch.core.simulate",
            "repro_torch.design", "repro_torch.obs", "repro_torch.ioutil",
-           "repro_torch.serving.loadgen"]
+           "repro_torch.serving.loadgen", "repro_torch.cluster.config",
+           "repro_torch.cluster.transport", "repro_torch.cluster.worker",
+           "repro_torch.cluster.pool", "repro_torch.cluster.backend",
+           "repro_torch.analysis", "repro_torch.analysis.attribution"]
 
 
 def test_port_import_loads_no_jax_and_no_reference():
@@ -37,8 +40,24 @@ def test_port_import_loads_no_jax_and_no_reference():
     assert "repro_torch.models.lm" in mods
     for m in ("repro_torch.design.policy", "repro_torch.design.pareto",
               "repro_torch.design.state", "repro_torch.obs.exporter",
-              "repro_torch.obs.slo", "repro_torch.serving.cache"):
+              "repro_torch.obs.slo", "repro_torch.serving.cache",
+              "repro_torch.cluster.backend", "repro_torch.cluster.pool"):
         assert m in mods, m
+
+
+def test_cluster_spawn_target_imports_no_torch():
+    """A numpy-compute worker process starts without torch: the spawn
+    target's imports load neither torch nor jax nor the reference."""
+    code = ("import json, sys\n"
+            "from repro_torch.cluster.worker import worker_main\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in mods
+           if m.split(".")[0] in ("torch", "jax", "jaxlib", "repro")]
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(PORT).as_posix()

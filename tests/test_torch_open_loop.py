@@ -245,10 +245,18 @@ def test_shed_request_is_not_copied_and_validation_comes_first():
 
 
 def test_realtime_open_loop_needs_a_live_backend():
+    """Wall-clock pacing is the default only on a live backend (the
+    cluster): on the modeled sim backend ``run_open`` keeps the virtual
+    clock, so an arrival at t = 1e6 dispatches at exactly 1e6 unwaited."""
+    from repro_torch.cluster.backend import ClusterBackend
+    from repro_torch.serving import OpenRequest
     s = MasterScheduler(code_from_reference(lsac48()), _backend("sim"))
-    with pytest.raises(NotImplementedError, match="live backend"):
-        s.run_open([], realtime=True)
+    assert not s.backend.live and ClusterBackend.live
+    assert s.run_open([], realtime=True) == []
     assert s.run_open([]) == []
+    A, B = np.ones((4, 8)), np.ones((8, 4))
+    (res,) = s.run_open([OpenRequest(1e6, A, B)])
+    assert res.t_dispatch == 1e6 and res.arrival == 1e6
 
 
 def test_edf_batches_and_accuracy_slo_rejection():

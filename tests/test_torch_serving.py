@@ -594,6 +594,21 @@ def test_cli_json_and_text(capsys):
     assert "[serve] req 1:" in out and "requests in" in out
 
 
+def test_run_serve_on_drawn_operands_matches_its_own_draw():
+    """``run_serve(args, operands)`` serves a list drawn once with
+    ``draw_operands`` as it serves its own draw; a list of the wrong
+    length is refused."""
+    args = port_serve.build_parser().parse_args(
+        ["--device", "cpu", "--rows", "16", "--inner", "64", "--requests",
+         "3", "--code", "lsac_ortho", "--seed", "4"])
+    ops = list(port_serve.draw_operands(args))
+    assert len(ops) == 3 and ops[0][0].shape == (16, 64)
+    own = port_serve.run_serve(args).requests
+    assert port_serve.run_serve(args, ops).requests == own
+    with pytest.raises(ValueError, match="2 operand pairs for --requests 3"):
+        port_serve.run_serve(args, ops[:2])
+
+
 @pytest.mark.parametrize("argv,flag", [
     (["--inner", "100", "--K", "8"], "--inner"),
     (["--batch-size", "0"], "--batch-size"),
