@@ -84,7 +84,26 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
     in real time against a ``sim`` replay of its trace (same sheds, drops,
     batches and answers).  The coded_matmul launches come from the
     workers' own counters.
-14. Print the card's name and power limit, one ``{"kernels": [...]}`` line,
+14. The coded runtime and training: (a) ``distributed_coded_matmul`` with
+    NCCL at world size 1 on phase 4's L-SAC job (its first drawn pair; K=8,
+    N=24), the kernel's launch count growing, its products within 1e-5 of
+    the float64 oracle and its estimate within 1e-6 of float64 ``Σ w_n
+    P_n`` of the same products, then ``TorchDeviceBackend.decode_on_mesh``
+    with an incremental decoder's weights at an exact state, held the same
+    way; (b) repro-100m at full width (12 x 768 / 2048, vocab 32,000,
+    bf16) at the training CLI's batch 8 x 512: 30 steps uncoded and 20
+    with the coded MLP (K=8, N=16, one dead worker), finite losses and a
+    held-out loss that falls, the coded run's loss within 3x the
+    reference's measured gap of the uncoded run's (also at the reference's
+    cut, batch 2 x 128), step ms, tokens/s, peak memory and a profiled
+    step; one coded contraction at full width (4096 x 2048 x 768, float32)
+    within 1e-3 of ``h @ w_down`` for every tolerated dead count (bf16
+    reported); the training CLI stopped by ``--simulate-failure-at 28`` in
+    a process of its own, then resumed here from its step-25 checkpoint:
+    losses within 1e-6 of the uninterrupted run, bit-identity reported;
+    (c) repro-10m (float32) trained 3 steps on the card and on the CPU
+    from the same weights, loss and grad norm within 1e-4 relative.
+15. Print the card's name and power limit, one ``{"kernels": [...]}`` line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -2033,6 +2052,506 @@ def _cluster_realtime(device: str) -> dict:
             "served": len(got) - dropped, "dropped": dropped, "wall_s": wall}
 
 
+# Phase 14: the coded runtime and training.  The distributed job is phase 4's
+# L-SAC (ortho) K = 8, N = 24 on its first drawn 2048 x 32768 pair; its decode
+# weights come from a completion order whose first R workers are well
+# conditioned (sum |w| about 7; the order 0..23 gives 2e11: ROADMAP Queue C),
+# so float32 products decode to float32 accuracy.
+DIST_ORDER_SEED, DIST_DECODER_SEED = 0, 3
+DIST_DECODE_TOL = 1e-6        # against float64 sum w_n P_n of the same products
+# repro-100m at full width, the training CLI's batch 8 x 512; the coded MLP
+# with K = 8, N = 16 and one dead worker (the most it tolerates: N - 2K + 1)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "repro-100m", 8, 512
+TRAIN_STEPS, CODED_STEPS, CODED_N, CODED_DEAD = 30, 20, 16, 1
+# the resume check: the CLI checkpoints every 25 steps, so the failure comes
+# after step 28 and the resumed run replays steps 25..29
+FAIL_AT, CKPT_STEP = 28, 25
+RESUME_TOL = 1e-6             # the reference test's rtol
+# Each step draws new tokens and the warm-up learning rate is small (3e-6 at
+# step 1, 9e-5 at step 30), so the step losses move by less than one batch's
+# noise; "the loss falls" is held on one held-out batch (the pipeline's step
+# HELDOUT_STEP, never trained on): its loss after the run must be below its
+# loss at the initial weights.  The means of the first and last FALL_WINDOW
+# step losses are reported.
+HELDOUT_STEP, FALL_WINDOW = 10 ** 6, 5
+# The coded run's loss gap to the uncoded run, relative to the uncoded loss,
+# in the reference's own train(): at most 7.78e-3 per step over seeds 0-2 at
+# repro-100m's widths and depth, bf16, batch 2 x 128, 3 steps
+# (tools/coded_gap.py --package reference on the CPU; PERF.md §6).  The
+# card's runs are held to CODED_GAP_FACTOR times it, at that cut and at
+# full size.
+CODED_GAP_REF, CODED_GAP_FACTOR = 7.78e-3, 3.0
+GAP_CUT = {"batch": 2, "seq": 128, "steps": 3}
+# one coded contraction at full width (float32) against h @ w_down: the
+# reference test's limit
+CONTRACTION_SHAPE, CONTRACTION_TOL = (4096, 2048, 768), 1e-3
+# repro-10m (float32) on the card against the CPU from the same weights
+SMALL_TRAIN_STEPS, SMALL_TRAIN_TOL = 3, 1e-4
+
+
+def _init_dist_world1(store_dir: Path) -> None:
+    """A one-rank NCCL group on card 0, with a file store in ``store_dir``."""
+    import datetime
+    import shutil
+
+    import torch.distributed as dist
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(store_dir / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+
+
+def _phase_distributed(A, B) -> dict:
+    """(a) ``distributed_coded_matmul`` with NCCL at world size 1, then
+    ``TorchDeviceBackend.decode_on_mesh`` with an incremental decoder's
+    weights at an exact state."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core import split_contraction
+    from repro_torch.kernels import coded_matmul, worker_products
+    from repro_torch.launch.serve import CODES
+    from repro_torch.runtime.coded import (decode_weight_vector,
+                                           distributed_coded_matmul,
+                                           encode_operands)
+    from repro_torch.serving import IncrementalDecoder, TorchDeviceBackend
+    code = CODES["lsac_ortho"].build(8, 24)
+    N, R = code.N, code.recovery_threshold
+    t0 = time.perf_counter()
+    E_A64, E_B64 = encode_operands(code, *split_contraction(A, B, code.K))
+    encode_s = time.perf_counter() - t0
+    ea64 = torch.from_numpy(E_A64).cuda()
+    eb64 = torch.from_numpy(E_B64).cuda()
+    del E_A64, E_B64
+    ea, eb = ea64.float(), eb64.float()
+    order = np.random.default_rng(DIST_ORDER_SEED).permutation(N)
+    w = decode_weight_vector(code, order, R)
+    _init_dist_world1(ROOT / "build" / "dist_store")
+    try:
+        _zero_launches()
+        t0 = time.perf_counter()
+        est = distributed_coded_matmul(ea, eb, torch.as_tensor(
+            w, dtype=torch.float32, device="cuda"))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = coded_matmul.launches
+        if launches <= 0:
+            fail("distributed_coded_matmul did not launch coded_matmul")
+        # the checks' own products (not counted)
+        P = worker_products(ea, eb)
+        P64 = torch.bmm(ea64, eb64)
+        del ea64, eb64
+        prod_err = float((torch.linalg.vector_norm(P.double() - P64,
+                                                   dim=(-2, -1))
+                          / torch.linalg.vector_norm(P64, dim=(-2, -1)))
+                         .max())
+        del P64
+        Pd = P.double()
+
+        def oracle(wv):
+            return torch.einsum("w,wij->ij", torch.as_tensor(
+                wv, dtype=torch.float64, device="cuda"), Pd)
+
+        def rel(got, want):
+            return float(torch.linalg.vector_norm(got.double() - want)
+                         / torch.linalg.vector_norm(want))
+
+        est_err = rel(est, oracle(w))
+        C = torch.from_numpy(A).cuda() @ torch.from_numpy(B).cuda()
+        exact_err = rel(est, C)
+        if prod_err > CLUSTER_PRODUCT_TOL:
+            fail(f"distributed products {prod_err:.3e} from the float64 "
+                 f"oracle (limit {CLUSTER_PRODUCT_TOL})")
+        if not est_err <= DIST_DECODE_TOL:
+            fail(f"distributed_coded_matmul {est_err:.3e} from float64 "
+                 f"sum w_n P_n of its products (limit {DIST_DECODE_TOL})")
+        # decode_on_mesh at an incremental decoder's exact state
+        dec = IncrementalDecoder(code)
+        for n in np.random.default_rng(DIST_DECODER_SEED).permutation(N)[:R]:
+            dec.push(int(n), P[n])
+        wd = dec.weight_vector()
+        before = coded_matmul.launches
+        t0 = time.perf_counter()
+        est2 = TorchDeviceBackend(device="cuda").decode_on_mesh(code, A, B,
+                                                                wd)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        mesh_launches = coded_matmul.launches - before
+        if mesh_launches <= 0:
+            fail("decode_on_mesh did not launch coded_matmul")
+        mesh_err = rel(est2, oracle(wd))
+        mesh_exact = rel(est2, C)
+        if not mesh_err <= DIST_DECODE_TOL:
+            fail(f"decode_on_mesh {mesh_err:.3e} from float64 sum w_n P_n "
+                 f"(limit {DIST_DECODE_TOL})")
+    finally:
+        dist.destroy_process_group()
+    del ea, eb, P, Pd, C, est, est2
+    torch.cuda.empty_cache()
+    log(f"distributed_coded_matmul (NCCL, world size 1; lsac_ortho K=8 N=24 "
+        f"on phase 4's first 2048x32768 pair): {launches} coded_matmul "
+        f"launch, {run_s * 1e3:.1f} ms; host float64 encode {encode_s:.1f} s;"
+        f" products within {prod_err:.2e} of the float64 oracle (limit "
+        f"{CLUSTER_PRODUCT_TOL}); estimate {est_err:.2e} from float64 "
+        f"sum w_n P_n (limit {DIST_DECODE_TOL}; sum |w| "
+        f"{float(np.abs(w).sum()):.3g}), {exact_err:.2e} from A@B")
+    log(f"decode_on_mesh (incremental decoder's exact state, sum |w| "
+        f"{float(np.abs(wd).sum()):.3g}): {mesh_launches} launch, "
+        f"{mesh_s:.1f} s with its host encode; {mesh_err:.2e} from float64 "
+        f"sum w_n P_n, {mesh_exact:.2e} from A@B")
+    return {"launches": {"coded_matmul": launches + mesh_launches,
+                         "poly_encode": 0},
+            "distributed_ms": run_s * 1e3, "host_encode_s": encode_s,
+            "product_max_rel_err": prod_err, "estimate_rel_err": est_err,
+            "estimate_vs_exact": exact_err, "sum_abs_w": float(
+                np.abs(w).sum()), "decode_on_mesh_rel_err": mesh_err,
+            "decode_on_mesh_vs_exact": mesh_exact,
+            "decode_on_mesh_s": mesh_s}
+
+
+def _start_failing_train(ckpt: Path) -> subprocess.Popen:
+    """The training CLI at full size, stopped by ``--simulate-failure-at``
+    after its step-25 checkpoint; output to a file beside the checkpoints."""
+    import shutil
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    log_f = open(ckpt.parent / "train_fail.log", "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir",
+             str(ckpt), "--simulate-failure-at", str(FAIL_AT), "--seed", "0"],
+            cwd=ROOT, env=_child_env(), stdout=log_f,
+            stderr=subprocess.STDOUT)
+    finally:
+        log_f.close()
+
+
+def _timed_steps(cfg, params, opt, coded_w, first: int, n: int = 5) -> dict:
+    """Host-clock ms of ``n`` more train steps (each ending in a
+    synchronise) on the trained state, through ``make_train_step``, then
+    device time by kernel over one more step (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.runtime.steps import make_train_step
+    step_fn = make_train_step(cfg, device="cuda")
+    gen = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    times = []
+    for s in range(first, first + n + 1):
+        batch = {"tokens": torch.as_tensor(gen(s)["tokens"],
+                                           dtype=torch.long, device="cuda")}
+        if coded_w is not None:
+            batch["coded_weights"] = coded_w
+        torch.cuda.synchronize()
+        if s == first + n:                        # the profiled step
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, opt, m = step_fn(params, opt, batch, s)
+                float(m["loss"])
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            break
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch, s)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = sum(times) / len(times)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    rows = _device_rows(prof, wall_ms, f"breakdown ({cfg.name} train step, "
+                        f"{'coded' if coded_w is not None else 'uncoded'}, "
+                        f"profiled; {launches} kernel launches)")
+    return {"step_ms": ms, "step_ms_each": times,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+            "breakdown": dict(rows, launch_calls=launches)}
+
+
+def _heldout(cfg, params, coded_w=None) -> float:
+    """``lm_loss`` of the held-out batch (no gradient)."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import lm_loss
+    batch = {"tokens": torch.as_tensor(SyntheticTokens(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)(HELDOUT_STEP)[
+            "tokens"], dtype=torch.long, device="cuda")}
+    if coded_w is not None:
+        batch["coded_weights"] = coded_w
+    with torch.no_grad():
+        return float(lm_loss(params, batch, cfg))
+
+
+def _mean(xs) -> float:
+    return sum(xs) / len(xs)
+
+
+def _gap(base, coded) -> float:
+    return max(abs(c - b) / abs(b) for b, c in zip(base, coded))
+
+
+def _phase_train(failing: subprocess.Popen, ckpt: Path) -> dict:
+    """(b) repro-100m at full width on the card: uncoded, coded with one
+    dead worker, the gap between them, one coded contraction at full width,
+    and the resume after the CLI's simulated failure."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import MatDotCode, chebyshev_roots
+    from repro_torch.launch.train import build_state, train
+    from repro_torch.runtime.coded import (coded_contraction,
+                                           coded_generators,
+                                           exact_weight_vector)
+    cfg = get_arch(TRAIN_ARCH)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=None, resume=False,
+              seed=0, device="cuda")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
+    # the cut the reference's gap was measured at, then full size
+    cut = {k: v for k, v in kw.items() if k not in ("batch", "seq")}
+    _, _, cb = train(cfg, steps=GAP_CUT["steps"], batch=GAP_CUT["batch"],
+                     seq=GAP_CUT["seq"], log_every=100, **cut)
+    _, _, cc = train(cfg, steps=GAP_CUT["steps"], batch=GAP_CUT["batch"],
+                     seq=GAP_CUT["seq"], coded=True, coded_N=CODED_N,
+                     dead_workers=CODED_DEAD, log_every=100, **cut)
+    out["cut_gap"] = {"uncoded": cb, "coded": cc, "max_rel_gap": _gap(cb, cc)}
+    # the CLI's failing run ends before the timed runs start
+    try:
+        rc = failing.wait(timeout=600)
+    finally:
+        if failing.poll() is None:
+            failing.kill()
+            failing.wait()
+    if rc != 42:
+        tail = (ckpt.parent / "train_fail.log").read_text()[-3000:]
+        fail(f"train --simulate-failure-at {FAIL_AT}: exit {rc} (42 "
+             f"expected)\n{tail}")
+    code = MatDotCode(cfg.coded_K, CODED_N, chebyshev_roots(CODED_N))
+    live = np.ones(CODED_N, bool)
+    live[:CODED_DEAD] = False
+    cw = torch.as_tensor(exact_weight_vector(code, live),
+                         dtype=torch.float32, device="cuda")
+    ccfg = cfg.replace(coded=True)
+    init, _ = build_state(cfg, 0, device="cuda")
+    h0 = (_heldout(cfg, init), _heldout(ccfg, init, cw))
+    del init
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, base = train(cfg, steps=TRAIN_STEPS, log_every=10, **kw)
+    torch.cuda.synchronize()
+    out["uncoded"] = {"losses": base, "wall_s": time.perf_counter() - t0,
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "heldout": (h0[0], _heldout(cfg, params))}
+    ref_state = {k: v.clone() for k, v in params.state_dict().items()}
+    out["uncoded"].update(_timed_steps(cfg, params, opt, None, TRAIN_STEPS))
+    del params, opt
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cparams, copt, coded = train(cfg, steps=CODED_STEPS, coded=True,
+                                 coded_N=CODED_N, dead_workers=CODED_DEAD,
+                                 log_every=10, **kw)
+    torch.cuda.synchronize()
+    out["coded"] = {"losses": coded, "wall_s": time.perf_counter() - t0,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "heldout": (h0[1], _heldout(ccfg, cparams, cw))}
+    out["coded"].update(_timed_steps(ccfg, cparams, copt, cw, CODED_STEPS))
+    del cparams, copt
+    torch.cuda.empty_cache()
+    out["coded"]["max_rel_gap"] = _gap(base[:CODED_STEPS], coded)
+    for name, run in (("uncoded", base), ("coded", coded)):
+        r = out[name]
+        r["window_means"] = (_mean(run[:FALL_WINDOW]),
+                             _mean(run[-FALL_WINDOW:]))
+        if not all(math.isfinite(x) for x in run):
+            fail(f"{name} training: a non-finite loss in {run}")
+        if not r["heldout"][1] < r["heldout"][0]:
+            fail(f"{name} training: held-out loss {r['heldout'][0]:.5f} at "
+                 f"the initial weights, {r['heldout'][1]:.5f} after the run "
+                 "(a fall expected)")
+    limit = CODED_GAP_FACTOR * CODED_GAP_REF
+    for what, g in (("cut", out["cut_gap"]["max_rel_gap"]),
+                    ("full size", out["coded"]["max_rel_gap"])):
+        if not g <= limit:
+            fail(f"coded vs uncoded loss at {what}: relative gap {g:.3e} "
+                 f"(limit {CODED_GAP_FACTOR} x the reference's "
+                 f"{CODED_GAP_REF} = {limit:.3e})")
+
+    # one coded contraction at full width, float32, every tolerated dead count
+    T, F, d = CONTRACTION_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(7)
+    h = torch.randn((T, F), generator=g, device="cuda")
+    wd = torch.randn((F, d), generator=g, device="cuda") / math.sqrt(F)
+    want = (h.double() @ wd.double())
+    G_A, G_B = coded_generators(code, device="cuda")
+
+    def err(got, exact):
+        return float(torch.linalg.vector_norm(got.double() - exact)
+                     / torch.linalg.vector_norm(exact))
+
+    # bf16 (the training dtype) is reported beside float32, unchecked: the
+    # decode weights' sum |w| multiplies bf16's rounding
+    hb, wb = h.bfloat16(), wd.bfloat16()
+    want_b = hb.double() @ wb.double()
+    contraction, contraction_bf16 = {}, {}
+    for dead in range(CODED_N - code.recovery_threshold + 1):
+        live = np.ones(CODED_N, bool)
+        live[:dead] = False
+        w = torch.as_tensor(exact_weight_vector(code, live),
+                            dtype=torch.float32, device="cuda")
+        contraction[dead] = err(coded_contraction(h, wd, G_A, G_B, w), want)
+        contraction_bf16[dead] = err(coded_contraction(hb, wb, G_A, G_B, w),
+                                     want_b)
+        if not contraction[dead] < CONTRACTION_TOL:
+            fail(f"coded contraction {T}x{F}x{d} with {dead} dead: "
+                 f"{contraction[dead]:.3e} from h @ w_down (limit "
+                 f"{CONTRACTION_TOL})")
+    plain_bf16 = err(hb @ wb, want_b)
+    out["contraction_rel_err_by_dead"] = contraction
+    out["contraction_bf16_rel_err_by_dead"] = contraction_bf16
+    out["plain_bf16_rel_err"] = plain_bf16
+    out["sum_abs_w"] = float(np.abs(exact_weight_vector(code, np.ones(
+        CODED_N, bool))).sum())
+    del h, wd, want, hb, wb, want_b
+
+    # resume: the CLI failed after step FAIL_AT; resume from its checkpoint
+    t0 = time.perf_counter()
+    rparams, _, resumed = train(cfg, steps=TRAIN_STEPS, log_every=10,
+                                **dict(kw, ckpt_dir=str(ckpt), resume=True))
+    resume_s = time.perf_counter() - t0
+    want = base[CKPT_STEP:]
+    if len(resumed) != len(want):
+        fail(f"resume ran {len(resumed)} steps, {len(want)} expected (from "
+             f"the step-{CKPT_STEP} checkpoint)")
+    dev_worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
+    if not dev_worst <= RESUME_TOL:
+        fail(f"resumed losses {resumed} vs uninterrupted {want}: "
+             f"{dev_worst:.3e} relative (limit {RESUME_TOL})")
+    same_params = all(torch.equal(v, ref_state[k])
+                      for k, v in rparams.state_dict().items())
+    out["resume"] = {"losses": resumed, "uninterrupted": want,
+                     "max_rel_dev": dev_worst,
+                     "losses_bit_identical": resumed == want,
+                     "final_params_bit_identical": same_params,
+                     "resume_s": resume_s}
+    del rparams, ref_state
+    torch.cuda.empty_cache()
+    u, c = out["uncoded"], out["coded"]
+    log(f"train {cfg.name} ({cfg.n_layers}x{cfg.d_model}/{cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}) at batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} on {CARD}: uncoded {TRAIN_STEPS} steps, loss "
+        f"{base[0]:.4f} -> {base[-1]:.4f} in {u['wall_s']:.1f} s; step "
+        f"{u['step_ms']:.1f} ms, {u['tokens_per_s']:.0f} tokens/s, peak "
+        f"{u['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"  coded MLP (K={cfg.coded_K}, N={CODED_N}, {CODED_DEAD} dead) "
+        f"{CODED_STEPS} steps: loss {coded[0]:.4f} -> {coded[-1]:.4f}; step "
+        f"{c['step_ms']:.1f} ms, {c['tokens_per_s']:.0f} tokens/s, peak "
+        f"{c['peak_bytes'] / 2**30:.2f} GiB; largest relative loss gap to "
+        f"uncoded {c['max_rel_gap']:.3e} (at batch {GAP_CUT['batch']} x "
+        f"{GAP_CUT['seq']}: {out['cut_gap']['max_rel_gap']:.3e}; limit "
+        f"{limit:.3e})")
+    log(f"  held-out loss (step {HELDOUT_STEP}'s batch): uncoded "
+        f"{u['heldout'][0]:.5f} -> {u['heldout'][1]:.5f}, coded "
+        f"{c['heldout'][0]:.5f} -> {c['heldout'][1]:.5f}; mean step loss of "
+        f"the first / last {FALL_WINDOW} steps: uncoded "
+        f"{u['window_means'][0]:.4f} / {u['window_means'][1]:.4f}, coded "
+        f"{c['window_means'][0]:.4f} / {c['window_means'][1]:.4f}")
+    log(f"  coded contraction {T}x{F}x{d} vs h @ w_down (sum |w| "
+        f"{out['sum_abs_w']:.4g}): float32 " + ", ".join(
+            f"{k} dead {v:.2e}" for k, v in contraction.items())
+        + f" (limit {CONTRACTION_TOL}); bf16 " + ", ".join(
+            f"{k} dead {v:.3g}" for k, v in contraction_bf16.items())
+        + f" (plain bf16 h @ w_down {plain_bf16:.2e}; not checked)")
+    log(f"  resume: the CLI exited 42 after step {FAIL_AT}; resumed from "
+        f"step {CKPT_STEP}, losses within {dev_worst:.2e} of the "
+        f"uninterrupted run (limit {RESUME_TOL}); bit-identical losses "
+        f"{out['resume']['losses_bit_identical']}, final parameters "
+        f"{same_params}")
+    return out
+
+
+def _phase_small_train() -> dict:
+    """(c) repro-10m in float32: the same weights train on the card and on
+    the CPU, uncoded and through the coded MLP (K = 8, N = CODED_N, CODED_DEAD
+    dead); loss and grad norm per step within SMALL_TRAIN_TOL.  The coded
+    run holds the card's coded FFN, forward and backward, to the CPU's,
+    which the CPU tests hold to the reference."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import MatDotCode, chebyshev_roots
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.train import build_state
+    from repro_torch.runtime.coded import exact_weight_vector
+    from repro_torch.runtime.steps import make_train_step
+    cfg = get_arch(TRAIN_ARCH, smoke=True)
+    gen = SyntheticTokens(cfg.vocab_size, 128, 4, seed=1)
+    live = np.ones(CODED_N, bool)
+    live[:CODED_DEAD] = False
+    cw = exact_weight_vector(MatDotCode(cfg.coded_K, CODED_N,
+                                        chebyshev_roots(CODED_N)), live)
+    cpu_params, _ = build_state(cfg, 0, device="cpu")
+    out = {}
+    for variant, vcfg in (("uncoded", cfg), ("coded", cfg.replace(
+            coded=True))):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            params, opt = build_state(vcfg, 0, device=dev)
+            params.load_state_dict(cpu_params.state_dict())
+            step = make_train_step(vcfg, device=dev)
+            rows = []
+            for s in range(SMALL_TRAIN_STEPS):
+                batch = gen(s)
+                if vcfg.coded:
+                    batch["coded_weights"] = cw
+                params, opt, m = step(params, opt, batch, s)
+                rows.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[dev] = rows
+        worst = {"loss": 0.0, "grad_norm": 0.0}
+        for (lg, gg), (lc, gc) in zip(runs["cuda"], runs["cpu"]):
+            worst["loss"] = max(worst["loss"], abs(lg - lc) / abs(lc))
+            worst["grad_norm"] = max(worst["grad_norm"],
+                                     abs(gg - gc) / abs(gc))
+        if max(worst.values()) > SMALL_TRAIN_TOL:
+            fail(f"{cfg.name} {variant} train steps card vs CPU: {worst} "
+                 f"(limit {SMALL_TRAIN_TOL})")
+        log(f"{cfg.name} float32 {variant}"
+            + (f" (K={cfg.coded_K}, N={CODED_N}, {CODED_DEAD} dead)"
+               if vcfg.coded else "")
+            + f", {SMALL_TRAIN_STEPS} train steps: card == CPU, loss within "
+            f"{worst['loss']:.2e}, grad norm {worst['grad_norm']:.2e} "
+            f"relative (limit {SMALL_TRAIN_TOL})")
+        out[variant] = {"steps": runs, "max_rel": worst}
+    return out
+
+
+def phase_coded_runtime(operands: list) -> dict:
+    """Phase 14: (a) the coded runtime's distributed job and decode_on_mesh,
+    (b) repro-100m training at full width, (c) repro-10m card vs CPU."""
+    t_phase = time.perf_counter()
+    ckpt = ROOT / "build" / "train_resume" / "ckpt"     # ignored by git
+    failing = _start_failing_train(ckpt)
+    try:
+        A, B = operands[0]
+        dist_out = _phase_distributed(A, B)
+        train_out = _phase_train(failing, ckpt)
+    finally:
+        if failing.poll() is None:
+            failing.kill()
+            failing.wait()
+    small = _phase_small_train()
+    total = time.perf_counter() - t_phase
+    log(f"coded runtime and training phase: {total:.1f} s ({CARD})")
+    return {"distributed": dist_out, "train": train_out, "small": small,
+            "launches": dist_out["launches"], "total_s": total}
+
+
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2088,6 +2607,7 @@ def main(argv=None) -> int:
     log(f"open loop, autotune and engine phases: "
         f"{time.perf_counter() - t_new:.1f} s ({card})")
     cluster = phase_cluster(lsac, paper_ops)
+    coded_runtime = phase_coded_runtime(paper_ops)
     del paper_ops
 
     # The exact L-SAC fit reads the first R completions.  Batch 1's
@@ -2112,7 +2632,8 @@ def main(argv=None) -> int:
 
     runs = {"lsac_ortho": lsac, "gsac_k1_5": gsac,
             "open_loop": open_loop["device"],
-            "autotune": autotune["device"], "cluster": cluster}
+            "autotune": autotune["device"], "cluster": cluster,
+            "distributed": coded_runtime}
     mm32, enc_main = mm["float32"], enc["batch_rows24"]
     kernels = [
         {"name": "coded_matmul", "status": "ported", "route": "cuda",
@@ -2169,7 +2690,8 @@ def main(argv=None) -> int:
              "flash_attention": flash, "ssm_scan": scan,
              "small_lm": small_lm, "lm": lm, "lm_breakdown": lm_breakdown,
              "open_loop": open_loop, "autotune": autotune,
-             "engine": engine, "cluster": cluster, "kernels": kernels},
+             "engine": engine, "cluster": cluster,
+             "coded_runtime": coded_runtime, "kernels": kernels},
             indent=2))
     print(card)
     print(json.dumps({"kernels": kernels, "not_ported": []}))

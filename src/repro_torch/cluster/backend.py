@@ -156,6 +156,7 @@ class ClusterDispatch:
         self._m["batches_dispatched"].inc()
         self._m["shards_dispatched"].inc(self.n_shards)
         self._t0 = time.monotonic()
+        undelivered = []
         for shard in range(self.n_shards):
             wid = self.workers[shard]
             self.pending[shard] = wid
@@ -164,11 +165,13 @@ class ClusterDispatch:
             if not self.pool.send(
                     wid, ("task", self.batch_id, shard,
                           self._operands.ref), operands=self._operands):
-                self._mark_lost(shard, "dispatch")
+                undelivered.append(shard)
         if backend.replicate > 1:
             for shard in range(self.n_shards):
                 for _ in range(backend.replicate - 1):
                     self.speculate(shard, reason="replicate")
+        for shard in undelivered:
+            self._undelivered(shard)
 
     # ------------------------------------------------------------------ time
     def elapsed(self) -> float:
@@ -236,6 +239,18 @@ class ClusterDispatch:
         self.lost[shard] = reason
         self._queued.append(ShardEvent(kind="lost", shard=shard, t=t,
                                        worker=wid, reason=reason))
+
+    def _undelivered(self, shard: int) -> None:
+        """The primary's channel was dead at dispatch (a worker that died
+        after the lease's reap, e.g. a crasher reading a task whose shard
+        its replica had already won).  A replica sent meanwhile becomes the
+        primary, as when a primary crashes mid-batch; without one the shard
+        is lost."""
+        self.copies[shard].discard(self.pending[shard])
+        if self.copies[shard]:
+            self.pending[shard] = min(self.copies[shard])
+        else:
+            self._mark_lost(shard, "dispatch")
 
     def _requeue(self, shard: int) -> bool:
         """Crashed primary: re-send the shard to its slot's replacement."""

@@ -8,7 +8,8 @@ name, so nothing of the reference is imported — with bit-equal
 ``generator()`` and ``estimate_weights``.  :func:`to_device` moves numpy
 operands onto a device.  :func:`lm_params_from_reference` carries a
 reference language model's parameter tree (numpy arrays) into the port's
-:class:`repro_torch.models.LM`.
+:class:`repro_torch.models.LM`, and :func:`adamw_state_from_reference` its
+optimizer state into the port's :class:`repro_torch.optim.AdamWState`.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from .core import (ChebyshevBasis, EpsApproxMatDotCode, GroupSACCode,
                    MatDotCode, MonomialBasis, OrthoMatDotCode)
 
 __all__ = ["code_from_reference", "basis_from_reference", "to_device",
-           "lm_params_from_reference"]
+           "lm_params_from_reference", "adamw_state_from_reference"]
 
 
 def basis_from_reference(basis):
@@ -115,6 +116,17 @@ def lm_params_from_reference(tree, cfg):
     dtype (``A_log`` and ``D`` are float32 in every model).
     """
     from .models import LM
+    state = _lm_state(tree, cfg)
+    model = LM(cfg, dtype=state["embed"].dtype, device="cpu")
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def _lm_state(tree, cfg) -> dict:
+    """A reference LM-shaped tree as the port's ``state_dict``: CPU
+    tensors under the :class:`~repro_torch.models.LM`'s names, in its
+    order."""
+    from .models import LM
     layers = tree["layers"]
     flat: dict = {}
     for i in range(cfg.n_layers):
@@ -124,8 +136,22 @@ def lm_params_from_reference(tree, cfg):
     for key in ("embed", "final_norm", "lm_head"):
         if key in tree:
             flat[key] = tree[key]
-    state = {k: _tensor(v) for k, v in flat.items()}
-    model = LM(cfg, dtype=state["embed"].dtype, device="cpu")
-    model.load_state_dict(state, strict=True)
-    return model
+    names = list(LM(cfg, dtype=torch.float32, device="meta").state_dict())
+    if sorted(names) != sorted(flat):
+        raise ValueError(f"{cfg.name}: the tree's leaves "
+                         f"{sorted(set(flat) ^ set(names))} do not match "
+                         "the port's parameters")
+    return {k: _tensor(flat[k]) for k in names}
+
+
+def adamw_state_from_reference(state, cfg):
+    """The port's :class:`~repro_torch.optim.AdamWState` (on the CPU)
+    holding a reference ``AdamWState`` with numpy leaves (``jax.tree.map(
+    np.asarray, state)``): the step as an int32 scalar, the moments under
+    the parameter names of :func:`lm_params_from_reference`, each leaf
+    keeping its dtype."""
+    from .optim import AdamWState
+    return AdamWState(step=torch.tensor(int(np.asarray(state.step)),
+                                        dtype=torch.int32),
+                      m=_lm_state(state.m, cfg), v=_lm_state(state.v, cfg))
 

@@ -165,3 +165,13 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """The kernels have no backward pass: raise rather than return an output
+    that autograd cannot differentiate, when a gradient is being recorded
+    for any of ``tensors`` (the plain versions differentiate)."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"the {what} kernel has no backward pass; run its "
+                           "plain version under autograd (use_kernels=False)")

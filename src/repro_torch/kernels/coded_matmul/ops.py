@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check, load
+from .._build import check, load, refuse_autograd
 from .ref import coded_matmul_ref
 
 __all__ = ["coded_matmul", "worker_products", "worker_products_complex"]
@@ -81,6 +81,7 @@ def coded_matmul(E_A: torch.Tensor, E_B: torch.Tensor,
             return P
         out.copy_(out + P if accumulate else P)
         return out
+    refuse_autograd("coded_matmul", E_A, E_B)
     if E_A.dtype != E_B.dtype or E_A.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"the coded_matmul kernel takes float32 or bfloat16 "
                         f"operands of one dtype; got {E_A.dtype} and "

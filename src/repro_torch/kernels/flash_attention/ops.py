@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check, load
+from .._build import check, load, refuse_autograd
 from .ref import attention_ref
 
 __all__ = ["flash_attention"]
@@ -72,6 +72,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window or None,
                              q_offset=q_offset)
+    refuse_autograd("flash_attention", q, k, v)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"the flash_attention kernel takes float32 or "
                         f"bfloat16 q, k, v of one dtype; got {q.dtype}, "

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check, load
+from .._build import check, load, refuse_autograd
 from .ref import ssm_scan_ref, ssm_step_ref
 
 __all__ = ["ssm_scan", "ssm_step_ref"]
@@ -61,6 +61,7 @@ def ssm_scan(x, dt, A, B, C, D, *, return_final: bool = False):
         raise ValueError("ssm_scan operands on more than one device")
     if x.device.type == "cpu":
         return ssm_scan_ref(x, dt, A, B, C, D, return_final=return_final)
+    refuse_autograd("ssm_scan", x, dt, A, B, C, D)
     if not (x.dtype == dt.dtype == B.dtype == C.dtype) \
             or x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"the ssm_scan kernel takes float32 or bfloat16 x, "

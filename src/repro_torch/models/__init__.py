@@ -1,9 +1,11 @@
-"""The language-model serving path of the port (dense, ssm and hybrid
-families): layers, attention, Mamba, blocks and the LM."""
+"""The language model of the port (dense, ssm and hybrid families):
+layers, attention, Mamba, blocks and the LM, for serving and training."""
+from .layers import cross_entropy_chunked
 from .lm import (LM, DecodeState, compute_logits, decode_step, embed_tokens,
-                 forward_hidden, init_decode_state, init_params,
-                 layer_windows, prefill)
+                 forward_hidden, gathered_logits_fn, init_decode_state,
+                 init_params, layer_windows, lm_loss, prefill)
 
-__all__ = ["LM", "DecodeState", "compute_logits", "decode_step",
-           "embed_tokens", "forward_hidden", "init_decode_state",
-           "init_params", "layer_windows", "prefill"]
+__all__ = ["LM", "DecodeState", "compute_logits", "cross_entropy_chunked",
+           "decode_step", "embed_tokens", "forward_hidden",
+           "gathered_logits_fn", "init_decode_state", "init_params",
+           "layer_windows", "lm_loss", "prefill"]

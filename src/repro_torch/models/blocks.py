@@ -3,17 +3,23 @@
 Counterpart of the reference's ``models/blocks.py`` for the dense, ssm and
 hybrid families.  A block is ``x + mixer(norm(x))`` then ``x +
 ffn(norm(x))``; the mixer is GQA attention (dense), Mamba (ssm), or both in
-parallel (hybrid — hymba's parallel attn+mamba heads).  The MoE and
-coded-FFN branches of the reference's ``_ffn`` belong to later slices
-(ROADMAP A12, A13).  ``p`` is one layer of :class:`repro_torch.models.lm.
-LM` (``p.attn["wq"]``, ``p.ssm["A_log"]``, ``p.mlp["w_up"]``, ...).
+parallel (hybrid — hymba's parallel attn+mamba heads).  With
+``cfg.coded`` and decode weights, the FFN's down-projection is the SAC-coded
+contraction (:func:`repro_torch.runtime.coded.coded_contraction`); the MoE
+branch of the reference's ``_ffn`` belongs to a later slice (ROADMAP A12).
+``p`` is one layer of :class:`repro_torch.models.lm.LM` (``p.attn["wq"]``,
+``p.ssm["A_log"]``, ``p.mlp["w_up"]``, ...).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..core import MatDotCode, chebyshev_roots
+from ..runtime.coded import coded_contraction, coded_generators
 from .attention import attention, decode_attention
-from .layers import gated_mlp, rms_norm, rope
+from .layers import gated_mlp, mlp_hidden, rms_norm, rope
 from .ssm import mamba_block, mamba_step
 
 __all__ = ["block_forward", "block_decode_step"]
@@ -45,17 +51,39 @@ def _attn_forward(p, x, cfg, positions, window: int, use_kernels: bool):
     return out @ p["wo"], (k, v)
 
 
-def _ffn(p, x, cfg):
-    if cfg.d_ff:
-        return gated_mlp(x, p.mlp, cfg.mlp_act)
-    return torch.zeros_like(x)
+@functools.lru_cache(maxsize=None)
+def _matdot_generators(K: int, N: int, device: torch.device):
+    """The coded FFN's ``(G_A, G_B)``: MatDot on Chebyshev points (the
+    best-conditioned real points), built once per (K, N, device) as the
+    reference builds them once at trace time."""
+    return coded_generators(MatDotCode(K, N, chebyshev_roots(N)),
+                            device=device)
+
+
+def _ffn(p, x, cfg, coded_weights=None):
+    if not cfg.d_ff:
+        return torch.zeros_like(x)
+    if cfg.coded and coded_weights is not None:
+        # SAC-coded down-projection: straggler-tolerant TP contraction over
+        # N = len(coded_weights) workers
+        B, L, d = x.shape
+        G_A, G_B = _matdot_generators(cfg.coded_K, coded_weights.shape[0],
+                                      x.device)
+        h = mlp_hidden(x, p.mlp, cfg.mlp_act)
+        out = coded_contraction(h.reshape(B * L, -1), p.mlp["w_down"], G_A,
+                                G_B, coded_weights)
+        return out.reshape(B, L, d)
+    return gated_mlp(x, p.mlp, cfg.mlp_act)
 
 
 def block_forward(p, x: torch.Tensor, cfg, positions, window: int, *,
-                  return_state: bool = False, use_kernels: bool = True):
+                  return_state: bool = False, use_kernels: bool = True,
+                  coded_weights=None):
     """One decoder block over a full sequence.
 
     ``window``: the layer's sliding window as a Python int (0: full).
+    ``coded_weights``: the coded FFN's (N,) decode vector (with
+    ``cfg.coded``; ``None`` runs the plain FFN).
     Returns ``(x', kv or None, ssm_state or None)`` — kv = (k, v) for
     caching; ssm_state = (conv_tail, h_final) when ``return_state``.
     """
@@ -80,7 +108,8 @@ def block_forward(p, x: torch.Tensor, cfg, positions, window: int, *,
         attn_out, kv = _attn_forward(p.attn, h, cfg, positions, window,
                                      use_kernels)
         x = x + attn_out
-    x = x + _ffn(p, rms_norm(x, p.ffn_norm, cfg.norm_eps), cfg)
+    x = x + _ffn(p, rms_norm(x, p.ffn_norm, cfg.norm_eps), cfg,
+                 coded_weights)
     return x, kv, ssm_state
 
 

@@ -3,8 +3,8 @@
 Counterpart of the reference's ``models/layers.py``, with the same
 numerics: ``rms_norm`` works in float32 and casts back, ``rope`` rotates
 the two halves of the head (not interleaved pairs), and the GELU is the
-tanh approximation.  ``cross_entropy_chunked`` belongs to training and is
-not ported yet (ROADMAP A13).
+tanh approximation.  :func:`cross_entropy_chunked` is the training
+loss's memory-bounded cross entropy.
 """
 from __future__ import annotations
 
@@ -12,8 +12,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["rms_norm", "rope", "sinusoidal_positions", "gated_mlp"]
+__all__ = ["rms_norm", "rope", "sinusoidal_positions", "gated_mlp",
+           "mlp_hidden", "cross_entropy_chunked"]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -47,17 +49,64 @@ def sinusoidal_positions(positions: torch.Tensor,
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def gated_mlp(x: torch.Tensor, p, act: str = "swiglu") -> torch.Tensor:
-    """SwiGLU / GeGLU gated MLP — or plain GELU FFN (act="gelu", no gate).
-    ``p`` maps ``w_up``, ``w_down`` and (gated) ``w_gate`` to weights."""
+def mlp_hidden(x: torch.Tensor, p, act: str = "swiglu") -> torch.Tensor:
+    """The MLP's hidden activation, before the down-projection: SwiGLU /
+    GeGLU gated — or plain GELU (act="gelu", no gate).  ``p`` maps ``w_up``
+    and (gated) ``w_gate`` to weights."""
     if act == "gelu":
-        return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+        return F.gelu(x @ p["w_up"], approximate="tanh")
     gate = x @ p["w_gate"]
     up = x @ p["w_up"]
     if act == "swiglu":
-        h = F.silu(gate) * up
-    elif act == "geglu":
-        h = F.gelu(gate, approximate="tanh") * up
-    else:
-        raise ValueError(f"unknown activation {act!r}")
-    return h @ p["w_down"]
+        return F.silu(gate) * up
+    if act == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def gated_mlp(x: torch.Tensor, p, act: str = "swiglu") -> torch.Tensor:
+    """SwiGLU / GeGLU gated MLP — or plain GELU FFN (act="gelu", no gate).
+    ``p`` maps ``w_up``, ``w_down`` and (gated) ``w_gate`` to weights."""
+    return mlp_hidden(x, p, act) @ p["w_down"]
+
+
+def _chunk_loss(logits_fn, h, t, m):
+    lg = logits_fn(h).float()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, t[:, None])[:, 0]
+    return ((lse - ll) * m).sum(), m.sum()
+
+
+def cross_entropy_chunked(logits_fn, hidden: torch.Tensor,
+                          targets: torch.Tensor,
+                          mask: torch.Tensor | None = None,
+                          chunk: int = 4096) -> torch.Tensor:
+    """Memory-bounded CE: project→softmax over token chunks.
+
+    ``logits_fn(h_chunk) -> (T_c, V)``; ``hidden (T, d)``; ``targets (T,)``
+    integer; ``mask (T,)`` float32 weights (all ones when not given).  The
+    last chunk is zero-padded and masked out.  Under autograd each chunk is
+    recomputed in the backward pass (``torch.utils.checkpoint``), so the
+    float32 ``(T, V)`` logits are never held at once.  Returns the masked
+    mean of the token losses (float32).
+    """
+    T = hidden.shape[0]
+    chunk = min(chunk, T)
+    pad = (-T) % chunk
+    if mask is None:
+        mask = torch.ones((T,), dtype=torch.float32, device=hidden.device)
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    remat = torch.is_grad_enabled()
+    losses, counts = [], []
+    for i in range(0, hidden.shape[0], chunk):
+        args = (logits_fn, hidden[i:i + chunk], targets[i:i + chunk],
+                mask[i:i + chunk])
+        loss, count = (checkpoint(_chunk_loss, *args, use_reentrant=False)
+                       if remat else _chunk_loss(*args))
+        losses.append(loss)
+        counts.append(count)
+    return torch.stack(losses).sum() / torch.clamp(torch.stack(counts).sum(),
+                                                   min=1.0)

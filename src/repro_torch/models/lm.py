@@ -8,12 +8,14 @@ others).  The parameters live in an :class:`LM` module whose
 ``lm_head``, ...), one submodule per layer in a ``ModuleList`` instead of a
 stacked layer axis.  The functions mirror the reference's:
 ``embed_tokens``, ``forward_hidden``, ``compute_logits``,
-``init_decode_state``, ``prefill`` and ``decode_step``; ``lm_loss`` belongs
-to training (ROADMAP A13).
+``gathered_logits_fn``, ``lm_loss``, ``init_decode_state``, ``prefill`` and
+``decode_step``.
 
 The prefill runs each layer's attention in the flash kernel and its Mamba
 half in the scan kernel (``use_kernels=False`` runs their plain versions
-instead, for comparisons).  The decode state keeps the reference's stacked
+instead, for comparisons).  The training loss (:func:`lm_loss`) runs the
+plain versions, which autograd differentiates, as the reference's
+``make_train_step`` does by default: the kernels have no backward pass.  The decode state keeps the reference's stacked
 per-layer layout; :func:`decode_step` writes the KV caches in place and
 returns the state with the next position.
 """
@@ -24,15 +26,17 @@ from typing import Any, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import check_family
 from ..device import resolve_device
 from .blocks import block_decode_step, block_forward
-from .layers import rms_norm, sinusoidal_positions
+from .layers import cross_entropy_chunked, rms_norm, sinusoidal_positions
 
 __all__ = ["LM", "DecodeState", "init_params", "layer_windows",
            "embed_tokens", "forward_hidden", "compute_logits",
-           "init_decode_state", "prefill", "decode_step"]
+           "gathered_logits_fn", "lm_loss", "init_decode_state", "prefill",
+           "decode_step"]
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -170,22 +174,63 @@ def embed_tokens(params: LM, tokens: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def forward_hidden(params: LM, x: torch.Tensor, cfg, positions, *,
-                   use_kernels: bool = True) -> torch.Tensor:
+                   use_kernels: bool = True,
+                   coded_weights=None) -> torch.Tensor:
     """Run all decoder blocks and the final norm.  x (B, L, d) → (B, L, d).
     (The reference also returns the MoE auxiliary loss, which is zero for
-    the families ported here.)"""
+    the families ported here.)  ``coded_weights``: the coded FFN's decode
+    vector (with ``cfg.coded``).  With ``cfg.remat`` under autograd each
+    layer is recomputed in the backward pass (``torch.utils.checkpoint``):
+    memory only, the numbers are the same."""
     check_family(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     for p_l, win in zip(params.layers, layer_windows(cfg)):
-        x, _, _ = block_forward(p_l, x, cfg, positions, win,
-                                use_kernels=use_kernels)
+        def layer(x, p_l=p_l, win=win):
+            return block_forward(p_l, x, cfg, positions, win,
+                                 use_kernels=use_kernels,
+                                 coded_weights=coded_weights)[0]
+        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
     return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
 def compute_logits(params: LM, hidden: torch.Tensor, cfg) -> torch.Tensor:
     """hidden (..., d) → logits over the (padded) vocab."""
+    return gathered_logits_fn(params, cfg)(hidden)
+
+
+def gathered_logits_fn(params: LM, cfg):
+    """``h ↦ logits`` through the (tied or untied) output head.  The
+    reference gathers the head's FSDP shard here once per loss; the port
+    holds the whole head on one device, so this is the plain product."""
     if cfg.tie_embeddings:
-        return hidden @ params.embed.T
-    return hidden @ params.lm_head
+        table = params.embed
+        return lambda h: h @ table.T
+    head = params.lm_head
+    return lambda h: h @ head
+
+
+def lm_loss(params: LM, batch: dict, cfg) -> torch.Tensor:
+    """Next-token CE loss (float32) over ``batch["tokens"]`` (B, L), a
+    tensor on the parameters' device; ``batch["coded_weights"]`` (N,), when
+    present, runs the coded FFN.  The layers run the kernels' plain
+    versions (autograd differentiates them)."""
+    check_family(cfg)
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    x = embed_tokens(params, tokens, cfg)
+    L = x.shape[1]
+    positions = torch.arange(L, device=x.device)[None].expand(B, L)
+    h = forward_hidden(params, x, cfg, positions, use_kernels=False,
+                       coded_weights=batch.get("coded_weights"))
+    h = h[:, :-1]                   # predict token t+1 from position t
+    T = h.shape[0] * h.shape[1]
+    hidden = h.reshape(T, cfg.d_model)
+    # at most 32 chunks, each a multiple of 512 rows (the reference's rule)
+    chunk = max(cfg.loss_chunk, -(-T // 32))
+    chunk = ((chunk + 511) // 512) * 512
+    tgt = tokens[:, 1:].reshape(T)
+    return cross_entropy_chunked(gathered_logits_fn(params, cfg), hidden,
+                                 tgt, chunk=chunk)
 
 
 class DecodeState(NamedTuple):

@@ -1,20 +1,30 @@
-"""Prefill and decode steps: the units a server calls.
+"""Train, prefill and decode steps: the units a trainer and a server call.
 
-Counterpart of the reference's ``runtime/steps.py`` (``make_prefill_step``,
-``make_decode_step``); ``make_train_step`` belongs to training (ROADMAP
-A13).  The device is fixed when a step is made: the card unless the caller
-asks for the CPU, raising without a card.  Tokens may come as numpy arrays
-or tensors; the parameters must already be on the step's device.
+Counterpart of the reference's ``runtime/steps.py``.  The device is fixed
+when a step is made: the card unless the caller asks for the CPU, raising
+without a card.  Tokens may come as numpy arrays or tensors; the
+parameters must already be on the step's device.
+
+The train step differentiates the kernels' plain versions, as the
+reference's ``make_train_step`` does by default (``use_pallas=False``):
+the hand-written kernels have no backward pass, and the reference's Pallas
+kernels do not differentiate either, even in interpret mode (ROADMAP), so
+the port's train step has no kernel switch.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..configs import check_family
 from ..device import resolve_device
 from ..models import lm
+from ..optim.adamw import (adamw_update, clip_by_global_norm,
+                           cosine_schedule, wsd_schedule)
 
-__all__ = ["make_prefill_step", "make_decode_step"]
+__all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
+           "make_schedule", "decayed_names"]
 
 
 def _on(dev: torch.device, params, tokens) -> torch.Tensor:
@@ -22,6 +32,71 @@ def _on(dev: torch.device, params, tokens) -> torch.Tensor:
         raise ValueError(f"parameters on {params.embed.device}, step made "
                          f"for {dev}")
     return torch.as_tensor(tokens, dtype=torch.long, device=params.embed.device)
+
+
+def make_schedule(cfg, *, peak_lr=3e-4, warmup=100, total=10_000):
+    """minicpm-2b trains with WSD (its paper's contribution); cosine else."""
+    fn = wsd_schedule if cfg.name.startswith("minicpm") else cosine_schedule
+    return functools.partial(fn, peak_lr=peak_lr, warmup=warmup, total=total)
+
+
+def decayed_names(named: dict, cfg) -> set:
+    """The parameters AdamW decays: those with ``ndim >= 2`` in the
+    reference's layout.  With ``cfg.use_scan`` the reference stacks each
+    per-layer leaf along a leading layer axis, so a layer's norm scales,
+    ``D``, ``dt_bias`` and ``conv_b`` are matrices there and decay; the
+    final norm does not."""
+    stacked = "layers." if cfg.use_scan else None
+    return {k for k, p in named.items()
+            if p.ndim + bool(stacked and k.startswith(stacked)) >= 2}
+
+
+def make_train_step(cfg, schedule=None, *, max_grad_norm: float = 1.0,
+                    device=None):
+    """``train_step(params, opt_state, batch, step) -> (params, opt_state,
+    metrics)``: the loss's gradient (autograd), clipped to
+    ``max_grad_norm``, then one AdamW update at ``schedule(step + 1)``.
+
+    ``params`` is an :class:`~repro_torch.models.LM` on the step's device,
+    updated in place and returned; ``opt_state`` an :class:`~repro_torch.
+    optim.AdamWState` over its named parameters; ``batch`` holds
+    ``tokens`` (B, L) and, for the coded FFN, ``coded_weights`` (N,).
+    ``metrics``: ``loss``, ``grad_norm``, ``lr`` and ``step`` (tensors on
+    the device; reading them waits for the step)."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    schedule = schedule or make_schedule(cfg)
+
+    def train_step(params, opt_state, batch, step):
+        inputs = {"tokens": _on(dev, params, batch["tokens"])}
+        if batch.get("coded_weights") is not None:
+            inputs["coded_weights"] = torch.as_tensor(
+                batch["coded_weights"], dtype=torch.float32, device=dev)
+        named = dict(params.named_parameters())
+        decay = decayed_names(named, cfg)
+        try:
+            for p in named.values():
+                p.requires_grad_(True)
+            with torch.enable_grad():
+                loss = lm.lm_loss(params, inputs, cfg)
+                grads = torch.autograd.grad(loss, list(named.values()),
+                                            materialize_grads=True)
+        finally:
+            for p in named.values():
+                p.requires_grad_(False)
+        grads, gnorm = clip_by_global_norm(dict(zip(named, grads)),
+                                           max_grad_norm)
+        lr = schedule(step + 1)            # step 0 would sit at warmup lr=0
+        new, opt_state = adamw_update(grads, opt_state, named, lr=lr,
+                                     decay=decay)
+        with torch.no_grad():
+            for k, p in named.items():
+                p.copy_(new[k])
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr,
+                   "step": opt_state.step}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg, max_seq: int | None = None, *, device=None,

@@ -37,6 +37,7 @@ from ..core.straggler import (sample_times, shifted_exp_times,
 from ..device import resolve_device
 from ..kernels import poly_encode, worker_products, worker_products_complex
 from ..names import unknown_name
+from ..runtime.coded import distributed_coded_matmul, encode_operands
 
 __all__ = ["ExecutionBackend", "SyntheticDispatch", "SimulatedBackend",
            "TorchDeviceBackend", "make_backend", "BACKEND_NAMES"]
@@ -276,6 +277,7 @@ class TorchDeviceBackend(ExecutionBackend):
     come back as one complex tensor.  The kernels take float32 operands, as
     the reference's device backend does.  Latencies reuse the simulated
     model, drawn exactly as the reference ``DeviceBackend`` draws them.
+    :meth:`decode_on_mesh` runs one job through the process-group path.
     """
 
     name = "device"
@@ -309,6 +311,31 @@ class TorchDeviceBackend(ExecutionBackend):
     def draw_latencies(self, rng: np.random.Generator,
                        N: int) -> np.ndarray:
         return shifted_exp_times(rng, N, **self.latency_kw)
+
+    def decode_on_mesh(self, code: CDCCode, A, B, weights,
+                       group=None) -> torch.Tensor:
+        """End-to-end device decode: a weighted all-reduce over the ranks
+        of ``group`` (``None``: the world), through
+        :func:`~repro_torch.runtime.coded.distributed_coded_matmul` on this
+        backend's device.
+
+        ``A``, ``B`` are encoded on the host in float64, as the reference
+        does, then cast to float32 (the kernels' operand type here, as in
+        :meth:`compute_products`).  ``weights`` is the incremental
+        decoder's current :meth:`~repro_torch.serving.incremental.
+        IncrementalDecoder.weight_vector` (real — complex weights are
+        rejected)."""
+        if np.iscomplexobj(np.asarray(weights)):
+            raise ValueError("complex decode weights cannot enter the real "
+                             "mesh job path; use a real-point code")
+        A_blocks, B_blocks = split_contraction(_host(A), _host(B), code.K)
+        E_A, E_B = encode_operands(code, A_blocks, B_blocks)
+
+        def put(x):
+            return torch.as_tensor(x).to(torch.float32).to(self.device)
+
+        return distributed_coded_matmul(put(E_A), put(E_B),
+                                        put(np.asarray(weights)), group)
 
 
 def _make_cluster(**kw):

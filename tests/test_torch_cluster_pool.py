@@ -371,6 +371,33 @@ def test_replicate_pins_upfront_copies():
         assert t_exact is not None and answers[-1][3]
 
 
+def test_replicate_serves_shard_whose_primary_died_before_dispatch():
+    """A primary whose channel is dead when the task is sent (it died after
+    the lease's reap) is covered by the shard's replica, as a primary that
+    crashes mid-batch is: no loss (the channel failure is injected on the
+    batch's first send, the primary of shard 0)."""
+    code = matdot(1, 2)
+    cfg = ServeConfig(deadlines=(0.5,), batch_size=2, seed=0)
+    with cluster(compute="numpy", workers=2, seed=10, grace=10.0,
+                 replicate=2) as be:
+        send, failed = be.pool.send, []
+
+        def flaky_send(wid, msg, operands=None):
+            if msg[0] == "task" and not failed:
+                failed.append(wid)
+                return False
+            return send(wid, msg, operands=operands)
+
+        be.pool.send = flaky_send
+        sched = MasterScheduler(code, be, cfg)
+        out = _serve(sched, _reqs(np.random.default_rng(19), 2))
+    assert len(failed) == 1
+    assert sched.losses == []
+    assert [why for _, _, why in sched.speculations] == ["replicate"] * 2
+    for _, t_exact, answers in out:
+        assert t_exact is not None and answers[-1][3]
+
+
 def test_socket_transport_crash_loss_and_replay_bit_identity():
     code = matdot(2, 3)
     reqs = _reqs(np.random.default_rng(3), 4)

@@ -690,3 +690,21 @@ def test_cluster_worker_that_cannot_see_the_card_fails(cuda, monkeypatch):
     with ClusterBackend(workers=1, compute="device", device=cuda) as be:
         with pytest.raises(RuntimeError, match="failed to start.*no CUDA"):
             be.pool.wait_ready(timeout=120.0)
+
+
+def test_kernels_refuse_autograd_on_the_card(cuda):
+    """The kernels have no backward pass: under autograd their wrappers
+    raise on the card instead of returning an output with no gradient."""
+    q = torch.randn((1, 2, 16, 16), device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        flash_attention(q, q, q)
+    with torch.no_grad():
+        flash_attention(q, q, q)
+    E = torch.randn((2, 8, 8), device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        coded_matmul(E, E)
+    x = torch.randn((1, 8, 4), device="cuda", requires_grad=True)
+    A = -torch.ones((4, 2), device="cuda")
+    B = torch.randn((1, 8, 2), device="cuda")
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        ssm_scan(x, x.detach().abs(), A, B, B, torch.ones(4, device="cuda"))

@@ -21,7 +21,10 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.kernels",
            "repro_torch.serving.loadgen", "repro_torch.cluster.config",
            "repro_torch.cluster.transport", "repro_torch.cluster.worker",
            "repro_torch.cluster.pool", "repro_torch.cluster.backend",
-           "repro_torch.analysis", "repro_torch.analysis.attribution"]
+           "repro_torch.analysis", "repro_torch.analysis.attribution",
+           "repro_torch.runtime.coded", "repro_torch.optim",
+           "repro_torch.data", "repro_torch.checkpoint",
+           "repro_torch.launch.train"]
 
 
 def test_port_import_loads_no_jax_and_no_reference():
