@@ -44,6 +44,29 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
    32 launches of each kernel, all in the prefill.
 9. Profile one full-width hymba prefill, and 4 decode steps after it, and
    print device time by kernel.
+9b. The MoE, vlm and audio families: flash at qwen2-moe-a2.7b's prefill
+    (4 x 16 x 8192 x 128) and at musicgen-large's (4 x 32 x 2048 x 64),
+    full causal, bf16, against its plain version per batch row and per
+    block of 16 query rows, timed beside SDPA and its bound, with the
+    ``flash_mma_kernel<128>`` and ``<64>`` instances' registers and
+    spills; then qwen2-moe-a2.7b at full width and depth (bf16, seeded
+    weights): a 1 x 2048 prefill with the kernels against the plain
+    versions (5e-2, with the share of (token, layer) top-4 expert sets
+    that agree, a repeat of the kernel prefill that must be bit-identical,
+    and by layer the dropped share, recounted on the host from the float32
+    router logits, and the router inputs' mean cosine similarity), the
+    served 4 x 8192 prefill
+    and 32 greedy decode steps (launch counts zeroed before it: 24 flash
+    launches, all in the prefill; the dropped share of routed
+    assignments), a profiled prefill and 4 decode steps by kind (expert
+    products, other GEMMs, flash, dispatch/scatter, elementwise: each
+    kernel once, summing to the busy time); musicgen-large at full width
+    (1 x 2048 kernels vs plain, a 4 x 2048 prompt with 16 decode steps of
+    (B, 1, 4) tokens, 48 flash launches); and the smoke configs of
+    qwen2-moe, kimi-k2, llava and musicgen in float32, card against CPU
+    (prefill 2e-4, decode 2e-3, lm_loss 1e-5 relative, 3 train steps 1e-4
+    as in 14c), each then trained 2 steps by the training driver on the
+    card.
 10. Open-loop serving at full width (``MasterScheduler.run_open``): two
     tenants shaped like ``benchmarks/load_slo.py``'s (1024 x 16384 with
     target 3e-1 and deadline 3 s, 2048 x 32768 with 1e-2 and 8 s), L-SAC
@@ -305,10 +328,11 @@ def ptxas_report(text: str) -> dict:
 
 # instances on the main paths, which must not spill (flash at d = 256 may:
 # its spill is reported), by a substring of their mangled names:
-# flash_mma_kernel<64>, coded_matmul_tf32x3_kernel<true> and every instance
-# of the selective scan (its states live in registers)
-NO_SPILL = ("flash_mma_kernelILi64E", "coded_matmul_tf32x3_kernelILb1E",
-            "ssm_scan_kernel")
+# flash_mma_kernel<64> (hymba, musicgen), flash_mma_kernel<128> (qwen2-moe;
+# 171 registers, no spill on the H100), coded_matmul_tf32x3_kernel<true>
+# and every instance of the selective scan (its states live in registers)
+NO_SPILL = ("flash_mma_kernelILi64E", "flash_mma_kernelILi128E",
+            "coded_matmul_tf32x3_kernelILb1E", "ssm_scan_kernel")
 
 
 def phase_build() -> dict:
@@ -733,21 +757,24 @@ def phase_scan(dev, gen) -> dict:
     return row
 
 
-def phase_small_lm() -> dict:
-    """hymba-smoke in float32, the same weights on the card (kernels) and
-    on the CPU (plain versions): prefill logits to 2e-4, decode to 2e-3."""
+def _smoke_card_vs_cpu(name: str) -> tuple:
+    """``name``'s smoke config in float32, the same weights on the card
+    (kernels) and on the CPU (plain versions): a 2 x 40 prefill and 8
+    decode steps, prefill logits to 2e-4, decode to 2e-3.  Returns (cfg,
+    {"card": model, "cpu": model}, row)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
-    cfg = get_arch(LM_ARCH, smoke=True)
+    cfg = get_arch(name, smoke=True)
     cpu = init_params(cfg, device="cpu",
                       generator=torch.Generator().manual_seed(0))
     gpu = init_params(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
-    tokens = torch.randint(0, cfg.vocab_size, (2, 48),
+    shape = (2, 48) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    tokens = torch.randint(0, cfg.vocab_size, shape,
                            generator=torch.Generator().manual_seed(1))
-    worst = {}
-    for name, model, dev in (("card", gpu, "cuda"), ("cpu", cpu, "cpu")):
+    runs = {}
+    for where, model, dev in (("card", gpu, "cuda"), ("cpu", cpu, "cpu")):
         logits, state = make_prefill_step(cfg, 48, device=dev)(
             model, {"tokens": tokens[:, :40]})
         step = make_decode_step(cfg, device=dev)
@@ -755,15 +782,267 @@ def phase_small_lm() -> dict:
         for t in range(40, 48):
             logits, state = step(model, tokens[:, t:t + 1], state)
             outs.append(logits)
-        worst[name] = [o.cpu() for o in outs]
-    pre = check_close(worst["card"][0], worst["cpu"][0], 2e-4, 2e-4,
-                      "hymba-smoke prefill logits card vs CPU")
-    dec = max(check_close(a, b, 2e-3, 2e-3, "hymba-smoke decode logits")
-              for a, b in zip(worst["card"][1:], worst["cpu"][1:]))
-    log(f"hymba-smoke float32: card (kernels) == CPU (plain versions); "
+        runs[where] = [o.cpu() for o in outs]
+    pre = check_close(runs["card"][0], runs["cpu"][0], 2e-4, 2e-4,
+                      f"{cfg.name} prefill logits card vs CPU")
+    dec = max(check_close(a, b, 2e-3, 2e-3, f"{cfg.name} decode logits")
+              for a, b in zip(runs["card"][1:], runs["cpu"][1:]))
+    log(f"{cfg.name} float32: card (kernels) == CPU (plain versions); "
         f"prefill logits max abs err {pre:.2e} (2e-4), decode {dec:.2e} "
         "(2e-3)")
-    return {"prefill_max_abs_err": pre, "decode_max_abs_err": dec}
+    return cfg, {"card": gpu, "cpu": cpu}, {"prefill_max_abs_err": pre,
+                                            "decode_max_abs_err": dec}
+
+
+def phase_small_lm() -> dict:
+    """hymba-smoke in float32, card against CPU (:func:`_smoke_card_vs_cpu`)."""
+    return _smoke_card_vs_cpu(LM_ARCH)[2]
+
+
+class _Routing:
+    """While active, records each MoE layer's top-k expert ids (T, k) in
+    call order, by wrapping ``repro_torch.models.moe._top_k_gates``; with
+    ``witness``, also each layer's float32 router logits (on the host) and
+    the mean cosine similarity of its router inputs, by wrapping
+    ``_router_logits``.  The model code is unchanged; without ``witness``
+    nothing waits for the card."""
+
+    def __init__(self, witness: bool = False):
+        self.witness = witness
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe = moe
+        self._orig = (moe._router_logits, moe._top_k_gates)
+        self.ids, self.logits, self.cosine = [], [], []
+
+        def logits_of(p, x):
+            out = self._orig[0](p, x)
+            if self.witness:
+                u = torch.nn.functional.normalize(x.float(), dim=-1)
+                s, T = u.sum(0), len(u)
+                self.cosine.append(float((s @ s - T) / (T * (T - 1))))
+                self.logits.append(out.cpu())
+            return out
+
+        def record(logits, k):
+            out = self._orig[1](logits, k)
+            self.ids.append(out[1])
+            return out
+        moe._router_logits, moe._top_k_gates = logits_of, record
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._router_logits, self._moe._top_k_gates = self._orig
+
+    def loads(self, cfg) -> list:
+        """Each layer's count of assignments per expert (E,)."""
+        return [torch.bincount(i.reshape(-1), minlength=cfg.n_experts)
+                for i in self.ids]
+
+    def dropped(self, cfg, T: int) -> list:
+        """Each layer's share of routed assignments past their expert's
+        capacity."""
+        from repro_torch.models.moe import capacity
+        C = capacity(cfg, T)
+        return [int((n - C).clamp_min(0).sum()) / (T * cfg.experts_per_token)
+                for n in self.loads(cfg)]
+
+    def dropped_host(self, cfg, T: int) -> list:
+        """The same shares recounted on the host, in float64, from each
+        layer's recorded float32 router logits (their top k, which the
+        softmax keeps in order)."""
+        from repro_torch.models.moe import capacity
+        C, k = capacity(cfg, T), cfg.experts_per_token
+        return [int((torch.bincount(torch.topk(lg.double(), k).indices
+                                    .reshape(-1), minlength=cfg.n_experts)
+                     - C).clamp_min(0).sum()) / (T * k)
+                for lg in self.logits]
+
+
+def _agreement(a: _Routing, b: _Routing) -> list:
+    """Share of tokens whose top-k expert sets are equal between two runs,
+    layer by layer."""
+    if len(a.ids) != len(b.ids) or not a.ids:
+        fail(f"routing records of {len(a.ids)} and {len(b.ids)} layers")
+    return [float((x.sort(-1).values == y.sort(-1).values).all(-1)
+                  .float().mean()) for x, y in zip(a.ids, b.ids)]
+
+
+def _lm_model(name: str, dev, seed: int):
+    """A full-width model of ``name`` from a seed: (cfg, model, params,
+    bytes, draw s)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    cfg = get_arch(name)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = init_params(cfg, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"{cfg.name}: {n / 1e9:.3f} B parameters (analytic "
+        f"{cfg.param_count() / 1e9:.3f} B), {nbytes / 1e9:.2f} GB on the "
+        f"card, drawn in {draw_s:.1f} s")
+    return cfg, model, n, nbytes, draw_s
+
+
+def _kernels_vs_plain(cfg, model, prompt) -> dict:
+    """One prefill with the kernels and one with the plain versions on the
+    same prompt: the last position's logits to 5e-2 relative Frobenius
+    error (each codebook's, for audio).  For an MoE model, also the two
+    runs' routing agreement; each layer's dropped share, counted on the
+    card and recounted on the host from the float32 router logits, its
+    busiest expert's load over the capacity and the mean cosine similarity
+    of its router inputs; and a second prefill with the kernels against
+    the first, which must be bit-identical."""
+    import contextlib
+    from repro_torch.runtime.steps import make_prefill_step
+    L = prompt.shape[1]
+    rec_k, rec_p = (_Routing(witness=True), _Routing()) if cfg.has_moe \
+        else (None, None)
+    with rec_k or contextlib.nullcontext():
+        with_k, _ = make_prefill_step(cfg, L)(model, {"tokens": prompt})
+    t0 = time.perf_counter()
+    with rec_p or contextlib.nullcontext():
+        plain, _ = make_prefill_step(cfg, L, use_kernels=False)(
+            model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    row = {"prompt": list(prompt.shape),
+           "plain_prefill_s": time.perf_counter() - t0,
+           "rel_fro": rel_fro(with_k, plain)}
+    if not (bool(torch.isfinite(with_k).all()) and row["rel_fro"] <= 5e-2):
+        fail(f"{cfg.name} {L}-token prefill: kernels vs plain relative "
+             f"Frobenius error {row['rel_fro']:.3e} (limit 5e-2) or "
+             "non-finite logits")
+    log(f"{cfg.name} {'x'.join(map(str, prompt.shape))} prefill, kernels vs "
+        "plain versions: last-position logits relative Frobenius error "
+        f"{row['rel_fro']:.3e} (limit 5e-2; plain prefill "
+        f"{row['plain_prefill_s']:.1f} s)")
+    if cfg.has_moe:
+        from repro_torch.models.moe import capacity
+        rec_2 = _Routing()
+        with rec_2:
+            again, _ = make_prefill_step(cfg, L)(model, {"tokens": prompt})
+        row["repeat_rel_fro"] = rel_fro(again, with_k)
+        row["repeat_bit_identical"] = bool(torch.equal(again, with_k))
+        repeat = _agreement(rec_k, rec_2)
+        row["repeat_agreement"] = sum(repeat) / len(repeat)
+        if not row["repeat_bit_identical"]:
+            fail(f"{cfg.name}: a repeat kernel prefill differs from the first"
+                 f" (logits {row['repeat_rel_fro']:.3e} apart, routing "
+                 f"{100 * row['repeat_agreement']:.3f} % equal); the MoE "
+                 "combine has no atomics")
+        by_layer = _agreement(rec_k, rec_p)
+        row["routing_agreement"] = sum(by_layer) / len(by_layer)
+        row["routing_agreement_by_layer"] = by_layer
+        T = L * len(prompt)
+        row["capacity"] = C = capacity(cfg, T)
+        row["dropped_by_layer"] = rec_k.dropped(cfg, T)
+        row["dropped_share"] = sum(row["dropped_by_layer"]) / cfg.n_layers
+        row["dropped_by_layer_host"] = rec_k.dropped_host(cfg, T)
+        row["busiest_load_by_layer"] = [int(n.max()) / C
+                                        for n in rec_k.loads(cfg)]
+        row["router_input_cosine_by_layer"] = rec_k.cosine
+        log(f"  top-{cfg.experts_per_token} expert sets equal in "
+            f"{100 * row['routing_agreement']:.3f} % of (token, layer) "
+            f"(layer 0: {100 * by_layer[0]:.3f} %, layer {cfg.n_layers - 1}:"
+            f" {100 * by_layer[-1]:.3f} %); a second kernel prefill: "
+            f"{100 * row['repeat_agreement']:.3f} % equal, logits "
+            f"{row['repeat_rel_fro']:.3e} apart (bit-identical "
+            f"{row['repeat_bit_identical']}); "
+            f"{100 * row['dropped_share']:.3f} % of routed assignments "
+            f"dropped at C = {C}")
+        log("  by layer: cosine of router inputs / dropped on the card / "
+            "recounted on the host / busiest expert's load over C: "
+            + ", ".join(f"{i}: {c:.3f}/{100 * a:.1f}%/{100 * b:.1f}%/"
+                        f"{m:.2f}" for i, (c, a, b, m) in enumerate(zip(
+                            row["router_input_cosine_by_layer"],
+                            row["dropped_by_layer"],
+                            row["dropped_by_layer_host"],
+                            row["busiest_load_by_layer"]))))
+    return row
+
+
+def _served(cfg, model, batch: int, prompt_len: int, steps: int,
+            tok_gen) -> tuple:
+    """The served run: a ``batch x prompt_len`` prefill then ``steps``
+    greedy decode steps, every kernel's launch count zeroed just before;
+    each attention layer launches flash and each Mamba layer the scan, all
+    in the prefill."""
+    from repro_torch.kernels import (coded_matmul, flash_attention,
+                                     poly_encode, ssm_scan)
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len) + cb,
+                           device="cuda", generator=tok_gen)
+    prefill_step = make_prefill_step(cfg, prompt_len + steps)
+    decode = make_decode_step(cfg)
+    kernels = (flash_attention, ssm_scan, coded_matmul, poly_encode)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    rec = _Routing() if cfg.has_moe else None
+    t0 = time.perf_counter()
+    if rec:
+        with rec:
+            logits, state = prefill_step(model, {"tokens": prompt})
+    else:
+        logits, state = prefill_step(model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    in_prefill = {fn.__name__: fn.launches for fn in kernels}
+    finite = bool(torch.isfinite(logits).all())
+    generated = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        generated.append(nxt)
+        logits, state = decode(model, nxt, state)
+        finite &= bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    served = {fn.__name__: fn.launches for fn in kernels}
+    want = {"flash_attention": cfg.n_layers if cfg.has_attention else 0,
+            "ssm_scan": cfg.n_layers if cfg.has_ssm else 0,
+            "coded_matmul": 0, "poly_encode": 0}
+    if in_prefill != want or served != want:
+        fail(f"{cfg.name} served run: launches {in_prefill} in the prefill, "
+             f"{served} in all (want {want}, none in decode)")
+    want_shape = (batch, 1) + cb + (cfg.padded_vocab(),)
+    if not finite or state.pos != prompt_len + steps or \
+            tuple(logits.shape) != want_shape:
+        fail(f"{cfg.name} served run: finite {finite}, state at "
+             f"{state.pos}, logits {tuple(logits.shape)}")
+    row = {"arch": cfg.name, "batch": batch, "prompt": prompt_len,
+           "decode_steps": steps, "max_seq": prompt_len + steps,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": batch * prompt_len / prefill_s,
+           "decode_s": decode_s, "decode_ms_per_step": decode_s / steps * 1e3,
+           "decode_tokens_per_s": batch * steps / decode_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": served, "logits_shape": list(want_shape),
+           "first_generated": torch.cat(generated, 1)[0, :8].tolist()}
+    log(f"{cfg.name} served ({' x '.join(map(str, prompt.shape))} prompt, "
+        f"max_seq {prompt_len + steps}): prefill {prefill_s:.2f} s "
+        f"({row['prefill_tokens_per_s']:.0f} tokens/s), decode "
+        f"{row['decode_ms_per_step']:.1f} ms per step of {batch} tokens "
+        f"({row['decode_tokens_per_s']:.0f} tokens/s), logits "
+        f"{list(want_shape)}, peak device memory "
+        f"{row['peak_bytes'] / 2**30:.2f} GiB, launches {served}; every "
+        "logit finite")
+    if rec:
+        from repro_torch.models.moe import capacity
+        row["capacity"] = capacity(cfg, batch * prompt_len)
+        row["dropped_by_layer"] = rec.dropped(cfg, batch * prompt_len)
+        row["dropped_share"] = sum(row["dropped_by_layer"]) / cfg.n_layers
+    del state, logits
+    torch.cuda.empty_cache()
+    return row, prompt
 
 
 def phase_full_lm(dev) -> tuple:
@@ -771,134 +1050,67 @@ def phase_full_lm(dev) -> tuple:
     1 x 2048 prefill with the kernels against the same prefill with the
     plain versions; (2) the served run, a 4 x 8192 prefill and 32 greedy
     decode steps, with the kernels' launch counts zeroed just before it."""
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import flash_attention, ssm_scan
-    from repro_torch.models import init_params
-    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
-    cfg = get_arch(LM_ARCH)
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(12)
-    model = init_params(cfg, device=dev, generator=gen)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
-    log(f"{cfg.name}: {n_params / 1e9:.3f} B parameters, "
-        f"{weight_bytes / 1e9:.2f} GB on the card, drawn in "
-        f"{time.perf_counter() - t0:.1f} s")
+    cfg, model, n, nbytes, draw_s = _lm_model(LM_ARCH, dev, 12)
     tok_gen = torch.Generator(device=dev)
     tok_gen.manual_seed(13)
-
-    # (1) kernels against plain versions on one 2048-token prompt
     prompt = torch.randint(0, cfg.vocab_size, (1, 2048), device=dev,
                            generator=tok_gen)
-    with_k, _ = make_prefill_step(cfg, 2048)(model, {"tokens": prompt})
-    t0 = time.perf_counter()
-    plain, _ = make_prefill_step(cfg, 2048, use_kernels=False)(
-        model, {"tokens": prompt})
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    fro = rel_fro(with_k, plain)
-    if not (bool(torch.isfinite(with_k).all()) and fro <= 5e-2):
-        fail(f"{cfg.name} 1x2048 prefill: kernels vs plain relative "
-             f"Frobenius error {fro:.3e} (limit 5e-2) or non-finite logits")
-    log(f"{cfg.name} 1x2048 prefill, kernels vs plain versions: last-position"
-        f" logits relative Frobenius error {fro:.3e} (limit 5e-2; plain "
-        f"prefill {plain_s:.1f} s)")
-    del with_k, plain, prompt
-
-    # (2) the served run
-    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
-                           device=dev, generator=tok_gen)
-    prefill_step = make_prefill_step(cfg, LM_PROMPT + LM_DECODE)
-    decode = make_decode_step(cfg)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in (flash_attention, ssm_scan):
-        fn.launches = 0
-    t0 = time.perf_counter()
-    logits, state = prefill_step(model, {"tokens": prompt})
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "ssm_scan": ssm_scan.launches}
-    finite = bool(torch.isfinite(logits).all())
-    generated = []
-    t0 = time.perf_counter()
-    for _ in range(LM_DECODE):
-        nxt = logits[:, -1].argmax(-1, keepdim=True)
-        generated.append(nxt)
-        logits, state = decode(model, nxt, state)
-        finite &= bool(torch.isfinite(logits).all())
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    served = {"flash_attention": flash_attention.launches,
-              "ssm_scan": ssm_scan.launches}
-    if launches != {"flash_attention": cfg.n_layers,
-                    "ssm_scan": cfg.n_layers} or served != launches:
-        fail(f"{cfg.name} served run: launches {launches} in the prefill, "
-             f"{served} in all (want {cfg.n_layers} of each, none in decode)")
-    if not finite or state.pos != LM_PROMPT + LM_DECODE:
-        fail(f"{cfg.name} served run: non-finite logits or state at "
-             f"{state.pos}")
-    row = {"arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
-           "batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
-           "max_seq": LM_PROMPT + LM_DECODE, "prefill_s": prefill_s,
-           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
-           "decode_s": decode_s,
-           "decode_ms_per_token": decode_s / LM_DECODE * 1e3,
-           "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
-           "peak_bytes": peak, "launches": served,
-           "plain_vs_kernels_rel_fro": fro, "plain_prefill_1x2048_s": plain_s,
-           "first_generated": torch.cat(generated, 1)[0, :8].tolist()}
-    log(f"{cfg.name} served (cut of prefill_32k: {LM_BATCH} x {LM_PROMPT} "
-        f"prompt, max_seq {LM_PROMPT + LM_DECODE}): prefill {prefill_s:.2f} s"
-        f" ({row['prefill_tokens_per_s']:.0f} tokens/s), decode "
-        f"{row['decode_ms_per_token']:.1f} ms per step of {LM_BATCH} tokens "
-        f"({row['decode_tokens_per_s']:.0f} tokens/s), peak device memory "
-        f"{peak / 2**30:.2f} GiB, launches {served}; every logit finite")
-    del state, logits
-    torch.cuda.empty_cache()
+    check = _kernels_vs_plain(cfg, model, prompt)
+    del prompt
+    row, prompt = _served(cfg, model, LM_BATCH, LM_PROMPT, LM_DECODE,
+                          tok_gen)
+    row.update(params=n, weight_bytes=nbytes, draw_s=draw_s,
+               kernels_vs_plain=check)
     return row, model, prompt
 
 
 def phase_lm_breakdown(model, prompt) -> dict:
-    """Device time by kernel over one full-width hymba prefill and over 4
-    decode steps after it, from ``torch.profiler``."""
+    """Device time by kernel over one profiled full-width prefill of
+    ``prompt`` and over 4 decode steps after it, from ``torch.profiler``;
+    for an MoE model by kind too (:func:`_moe_device_split`); the decode's
+    launches and its top host rows."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_arch
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
-    cfg = get_arch(LM_ARCH)
-    step = make_prefill_step(cfg, LM_PROMPT + LM_DECODE)
+    cfg = model.cfg
+    B, L = prompt.shape[:2]
+    step = make_prefill_step(cfg, L + LM_DECODE)
     decode = make_decode_step(cfg)
+    kw = {"activities": [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+          "record_shapes": cfg.has_moe}
     torch.cuda.synchronize()
     out = {}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(**kw) as prof:
         t0 = time.perf_counter()
         logits, state = step(model, {"tokens": prompt})
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     out["prefill"] = _device_rows(prof, wall_ms, f"breakdown ({cfg.name} "
-                                  f"prefill {LM_BATCH}x{LM_PROMPT}, "
-                                  "profiled)")
-    nxt = logits[:, -1].argmax(-1, keepdim=True)
-    logits, state = decode(model, nxt, state)             # warm-up step
+                                  f"prefill {B}x{L}, profiled)")
+    if cfg.has_moe:
+        out["prefill"]["by_kind"] = _moe_device_split(prof, cfg,
+                                                      out["prefill"])
+    logits, state = decode(model, logits[:, -1].argmax(-1)[:, None],
+                           state)                          # warm-up step
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(**kw) as prof:
         t0 = time.perf_counter()
         for _ in range(4):
-            logits, state = decode(model, logits[:, -1].argmax(
-                -1, keepdim=True), state)
+            logits, state = decode(model, logits[:, -1].argmax(-1)[:, None],
+                                   state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     out["decode"] = _device_rows(prof, wall_ms, f"breakdown ({cfg.name} 4 "
                                  "decode steps after the prefill, profiled)")
+    if cfg.has_moe:
+        out["decode"]["by_kind"] = _moe_device_split(prof, cfg,
+                                                     out["decode"])
+    out["decode"]["launches"] = sum(
+        e.count for e in prof.key_averages()
+        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                     "cudaLaunchKernelExC"))
+    log(f"  {out['decode']['launches']} kernel launches in the 4 decode "
+        "steps")
     host = sorted(((e.key, e.count, e.self_cpu_time_total / 1e3)
                    for e in prof.key_averages()),
                   key=lambda r: -r[2])[:8]
@@ -906,6 +1118,7 @@ def phase_lm_breakdown(model, prompt) -> dict:
         log(f"  host {ms:9.2f} ms  x{count:<5d} {name[:80]}")
     out["decode"]["host_top"] = [{"name": n, "count": c, "ms": ms}
                                  for n, c, ms in host]
+    del state, logits
     return out
 
 
@@ -926,6 +1139,278 @@ def _device_rows(prof, wall_ms: float, what: str) -> dict:
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
             "kernels": [{"name": n, "count": c, "ms": ms}
                         for n, c, ms in rows]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9b: the MoE, vlm and audio families.  qwen2-moe-a2.7b served at full
+# width and depth with hymba's cut of prefill_32k (4 x 8192 prompt, 32
+# greedy decode steps); musicgen-large at full width with a 4 x 2048 prompt
+# and 16 decode steps of (B, 1, 4) codebook tokens; the four families'
+# smoke configs card against CPU in float32.
+MOE_ARCH, AUDIO_ARCH = "qwen2-moe-a2.7b", "musicgen-large"
+AUDIO_BATCH, AUDIO_PROMPT, AUDIO_DECODE = 4, 2048, 16
+FAMILY_SMOKES = ("qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
+                 "llava-next-mistral-7b", "musicgen-large")
+# the smoke configs card vs CPU (float32): prefill and decode logits, and
+# lm_loss relative (the training tests' 1e-5)
+SMOKE_LOSS_TOL = 1e-5
+
+
+def _moe_bounds(cfg, B: int, L: int, weight_bytes: int,
+                kv_bytes: int) -> dict:
+    """Computed bounds of the qwen2-moe serve: the prefill's FLOP (the
+    projections, flash's 4·d per unmasked pair, the router, the active
+    routed experts and the shared ones) at the bf16 peak; a decode step's
+    bytes (every weight but the embedding table, and the KV cache) at the
+    memory rate."""
+    d, hd, T = cfg.d_model, cfg.resolved_head_dim, B * L
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    proj = 2 * T * d * hd * (2 * H + 2 * Hkv)
+    flash = 4 * hd * B * H * L * (L + 1) // 2
+    f = cfg.d_ff_expert
+    experts = 2 * 3 * T * d * f * (cfg.experts_per_token
+                                   + cfg.n_shared_experts)
+    router = 2 * T * d * cfg.n_experts
+    flops = cfg.n_layers * (proj + flash + experts + router)
+    embed = cfg.padded_vocab() * d * 2
+    step_bytes = weight_bytes - embed + kv_bytes
+    return {"prefill_flops": flops,
+            "prefill_flop_bound_s": flops / PEAK_FLOPS["bfloat16"],
+            "flash_flops": cfg.n_layers * flash,
+            "decode_step_bytes": step_bytes,
+            "decode_byte_bound_ms": step_bytes / PEAK_BYTES * 1e3}
+
+
+def _kind(kernel: str) -> str:
+    n = kernel.lower()
+    if "flash" in n:
+        return "flash"
+    if any(s in n for s in ("gemm", "gemv", "nvjet", "cutlass", "xmma",
+                            "cublas")):
+        return "other_gemm"
+    if any(s in n for s in ("index", "scatter", "gather", "sort", "radix",
+                            "search", "bincount", "histogram")):
+        return "dispatch_scatter"
+    return "elementwise_other"
+
+
+def _moe_device_split(prof, cfg, rows: dict) -> dict:
+    """Device ms of a profiled run by kind, each kernel counted once by its
+    own device time: the expert products (the kernels launched by an
+    ``aten::bmm`` on the (E, d, f) or (E, f, d) expert weights, moved out
+    of the kind their name gives), the other GEMMs and GEMVs (cuBLAS's
+    ``nvjet`` kernels among them), flash, dispatch and scatter (index /
+    scatter / gather / sort / search / bincount kernels) and the rest
+    (elementwise and copies).  Fails unless every kind is non-negative,
+    the expert products were found, and the kinds sum to the run's busy
+    time (:func:`_device_rows`)."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    out = dict.fromkeys(("expert_products", "other_gemm", "flash",
+                         "dispatch_scatter", "elementwise_other"), 0.0)
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            if e.self_device_time_total > 0:
+                out[_kind(e.name)] += e.self_device_time_total / 1e3
+        elif e.name == "aten::bmm" and len(e.input_shapes) > 1 and \
+                list(e.input_shapes[1]) in ([E, d, f], [E, f, d]):
+            for k in e.kernels:
+                out[_kind(k.name)] -= k.duration / 1e3
+                out["expert_products"] += k.duration / 1e3
+    total = sum(out.values())
+    log("  by kind: " + ", ".join(f"{k} {v:.2f} ms" for k, v in out.items())
+        + f" (sum {total:.2f} ms)")
+    if min(out.values()) < 0 or out["expert_products"] <= 0 or \
+            abs(total - rows.get("busy_ms", 0.0)) > 1e-6 * total:
+        fail(f"{cfg.name} device time by kind {out} does not split the busy "
+             f"time {rows.get('busy_ms')} ms")
+    return out
+
+
+def _flash_served(dev, gen, ptxas: dict, arch: str, B: int, L: int) -> dict:
+    """Flash at ``arch``'s served prefill (B x H/Hkv x L x head dim, full
+    causal, bf16): checked against the plain version per batch row
+    (elementwise and per block of FLASH_ROWS query rows), timed beside SDPA
+    and the bound; the ``flash_mma_kernel<head dim>`` instance's registers
+    and spills."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    cfg = get_arch(arch)
+    H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = (torch.randn(B, n, L, d, device=dev, generator=gen)
+               .to(torch.bfloat16) for n in (H, Hkv, Hkv))
+    got = flash_attention(q, k, v)
+    err = fro = rows = 0.0
+    for b in range(B):
+        want = attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1])
+        what = f"flash {cfg.name} b={b} causal"
+        err = max(err, check_close(got[b:b + 1], want, FLASH_LONG_TOL,
+                                   FLASH_LONG_TOL, what))
+        rows = max(rows, check_rows_fro(got[b:b + 1], want, what))
+        fro = max(fro, rel_fro(got[b:b + 1], want))
+        del want
+    lib = _sdpa(q, k, v, 0)
+    pairs = B * H * _flash_pairs(L, L, 0, 0)
+    flops = 4.0 * d * pairs
+    nbytes = 2 * (2 * B * H * L * d + 2 * B * Hkv * L * d)
+    b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+    inst = {n: r for n, r in ptxas.items() if f"flash_mma_kernelILi{d}E" in n}
+    if not inst:
+        fail(f"ptxas report shows no flash_mma_kernel<{d}>")
+    row = {"arch": cfg.name, "shape": [B, H, Hkv, L, d], "dtype": "bfloat16",
+           "window": 0, "max_abs_err": err, "rel_fro": fro,
+           "rows_rel_fro": rows, "unmasked_pairs": pairs, "flops": flops,
+           "flops_all_layers": cfg.n_layers * flops,
+           "ms": time_ms(lambda: flash_attention(q, k, v)),
+           "plain_ms": time_ms(lambda: [attention_ref(
+               q[b:b + 1], k[b:b + 1], v[b:b + 1]) for b in range(B)], 1),
+           "library_ms": time_ms(lib), "library_rel_fro": rel_fro(got, lib()),
+           "bound_ms": b_ms, "bound_by": b_by, "ptxas": inst}
+    row["tflops"] = flops / row["ms"] / 1e9
+    spills = any(r.get("spill_stores") or r.get("spill_loads")
+                 for r in inst.values())
+    log(f"flash {cfg.name} {B}x{H}/{Hkv}x{L}x{d} bf16 full causal: kernel "
+        f"{row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s over unmasked "
+        f"pairs), plain {row['plain_ms']:.1f} ms ({B} batch rows), SDPA "
+        f"{row['library_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+        f"{cfg.n_layers} layers {row['flops_all_layers'] / 1e12:.1f} TFLOP); "
+        f"vs plain: max abs err {err:.3e}, rel. Frobenius {fro:.3e}, worst "
+        f"block of {FLASH_ROWS} rows {rows:.3e}; rel. Frobenius vs SDPA "
+        f"{row['library_rel_fro']:.2e}; flash_mma_kernel<{d}> "
+        + "; ".join(f"{r.get('registers')} registers, {r.get('spill_stores')}"
+                    f" B spill stores, {r.get('spill_loads')} B spill loads"
+                    for r in inst.values())
+        + (" (SPILLS: reported, not a failure)" if spills else ""))
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def _moe_full(dev) -> dict:
+    """qwen2-moe-a2.7b at full width and depth, bf16, weights from a
+    seed: kernels vs plain on a 1 x 2048 prompt (with the routing
+    witness), the served 4 x 8192 + 32 run, and a profiled prefill and
+    decode."""
+    cfg, model, n, nbytes, draw_s = _lm_model(MOE_ARCH, dev, 14)
+    tok_gen = torch.Generator(device=dev)
+    tok_gen.manual_seed(15)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 2048), device=dev,
+                           generator=tok_gen)
+    check = _kernels_vs_plain(cfg, model, prompt)
+    del prompt
+    row, prompt = _served(cfg, model, LM_BATCH, LM_PROMPT, LM_DECODE,
+                          tok_gen)
+    kv_bytes = 2 * cfg.n_layers * LM_BATCH * cfg.n_kv_heads * (
+        LM_PROMPT + LM_DECODE) * cfg.resolved_head_dim * 2
+    row.update(params=n, weight_bytes=nbytes, draw_s=draw_s,
+               kv_cache_bytes=kv_bytes, kernels_vs_plain=check,
+               **_moe_bounds(cfg, LM_BATCH, LM_PROMPT, nbytes, kv_bytes))
+    log(f"  bounds: prefill {row['prefill_flop_bound_s']:.3f} s (FLOP), "
+        f"decode step {row['decode_byte_bound_ms']:.2f} ms (bytes); weights "
+        f"{nbytes / 2**30:.2f} GiB, KV cache {kv_bytes / 2**30:.2f} GiB; "
+        f"{100 * row['dropped_share']:.3f} % of routed assignments dropped "
+        f"at C = {row['capacity']} (layer 0: "
+        f"{100 * row['dropped_by_layer'][0]:.3f} %, layer "
+        f"{cfg.n_layers - 1}: {100 * row['dropped_by_layer'][-1]:.3f} %)")
+    row["profile"] = phase_lm_breakdown(model, prompt)
+    del model, prompt
+    torch.cuda.empty_cache()
+    return row
+
+
+def _audio_full(dev) -> dict:
+    """musicgen-large at full width and depth, bf16, weights from a seed:
+    kernels vs plain on a 1 x 2048 prompt, then a 4 x 2048 prompt and 16
+    greedy decode steps of (B, 1, 4) codebook tokens."""
+    cfg, model, n, nbytes, draw_s = _lm_model(AUDIO_ARCH, dev, 16)
+    tok_gen = torch.Generator(device=dev)
+    tok_gen.manual_seed(17)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 2048, cfg.n_codebooks),
+                           device=dev, generator=tok_gen)
+    check = _kernels_vs_plain(cfg, model, prompt)
+    del prompt
+    row, prompt = _served(cfg, model, AUDIO_BATCH, AUDIO_PROMPT,
+                          AUDIO_DECODE, tok_gen)
+    row.update(params=n, weight_bytes=nbytes, draw_s=draw_s,
+               kernels_vs_plain=check)
+    del model, prompt
+    torch.cuda.empty_cache()
+    return row
+
+
+def _families_small() -> dict:
+    """The four families' smoke configs in float32 card against CPU
+    (:func:`_smoke_card_vs_cpu`), then on the same weights lm_loss (llava
+    with vision embeddings, the MoE configs with their load-balance term)
+    to SMOKE_LOSS_TOL relative and SMALL_TRAIN_STEPS train steps (loss and
+    grad norm to SMALL_TRAIN_TOL relative, as phase 14c); then two steps of
+    the training driver on the card (what ``--arch <name> --smoke`` runs),
+    with finite losses."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm_loss
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import make_train_step
+    out = {}
+    for name in FAMILY_SMOKES:
+        cfg, models, row = _smoke_card_vs_cpu(name)
+        batch = SyntheticTokens(
+            vocab_size=cfg.vocab_size, seq_len=32, global_batch=2, seed=2,
+            n_codebooks=cfg.n_codebooks, vision_tokens=cfg.vision_tokens
+            if cfg.family == "vlm" else 0, d_model=cfg.d_model)(0)
+        losses, steps = {}, {}
+        for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+            model = models[where]
+            losses[where] = float(lm_loss(model, {
+                k: torch.as_tensor(v, device=dev, dtype=torch.long
+                                   if k == "tokens" else None)
+                for k, v in batch.items()}, cfg))
+            train_step = make_train_step(cfg, device=dev)
+            opt = adamw_init(dict(model.named_parameters()))
+            steps[where] = []
+            for s in range(SMALL_TRAIN_STEPS):
+                model, opt, m = train_step(model, opt, batch, s)
+                steps[where].append((float(m["loss"]),
+                                     float(m["grad_norm"])))
+        loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        if not loss_rel <= SMOKE_LOSS_TOL:
+            fail(f"{cfg.name} lm_loss card {losses['card']} vs CPU "
+                 f"{losses['cpu']}: relative {loss_rel:.2e} (limit "
+                 f"{SMOKE_LOSS_TOL})")
+        step_rel = max(abs(a - b) / abs(b) for card, cpu_ in zip(
+            steps["card"], steps["cpu"]) for a, b in zip(card, cpu_))
+        if not step_rel <= SMALL_TRAIN_TOL:
+            fail(f"{cfg.name} train steps card {steps['card']} vs CPU "
+                 f"{steps['cpu']} (limit {SMALL_TRAIN_TOL} relative)")
+        log(f"{cfg.name} float32: lm_loss card vs CPU relative "
+            f"{loss_rel:.2e} ({SMOKE_LOSS_TOL}); {SMALL_TRAIN_STEPS} train "
+            f"steps, loss and grad norm within {step_rel:.2e} relative "
+            f"({SMALL_TRAIN_TOL})")
+        losses_2 = train(cfg, steps=2, batch=2, seq=32, ckpt_dir=None,
+                         resume=False, device="cuda")[2]
+        if not all(math.isfinite(x) for x in losses_2):
+            fail(f"{cfg.name}: the training driver's losses {losses_2}")
+        out[cfg.name] = dict(row, loss_card=losses["card"],
+                             loss_cpu=losses["cpu"], loss_rel=loss_rel,
+                             train_steps=steps, train_max_rel=step_rel,
+                             driver_losses=losses_2)
+    return out
+
+
+def phase_families(dev, gen, ptxas: dict) -> dict:
+    """Phase 9b: flash at qwen2-moe-a2.7b's and musicgen-large's served
+    prefills, the two models at full width, and the four families' smoke
+    configs card vs CPU."""
+    t0 = time.perf_counter()
+    out = {"flash_qwen2_moe": _flash_served(dev, gen, ptxas, MOE_ARCH,
+                                            LM_BATCH, LM_PROMPT),
+           "flash_musicgen": _flash_served(dev, gen, ptxas, AUDIO_ARCH,
+                                           AUDIO_BATCH, AUDIO_PROMPT),
+           "qwen2_moe": _moe_full(dev), "musicgen": _audio_full(dev),
+           "smoke": _families_small()}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"MoE, vlm and audio phase: {out['seconds']:.1f} s ({CARD})")
+    return out
 
 
 def _serve(argv, operands=None):
@@ -2594,6 +3079,7 @@ def main(argv=None) -> int:
     lm_breakdown = phase_lm_breakdown(model, prompt)
     del model, prompt
     torch.cuda.empty_cache()
+    families = phase_families(dev, gen, ptxas)
     t_new = time.perf_counter()
     sim_twin = start_autotune_sim()
     try:
@@ -2660,13 +3146,17 @@ def main(argv=None) -> int:
          "library_ms": enc_main["library_ms"]},
     ]
     win = flash["window1024"]
+    flash_runs = {"hymba_served": lm["launches"]["flash_attention"],
+                  "qwen2_moe_served": families["qwen2_moe"]["launches"][
+                      "flash_attention"],
+                  "musicgen_served": families["musicgen"]["launches"][
+                      "flash_attention"]}
     kernels += [
         {"name": "flash_attention", "status": "ported", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
-         "launches": lm["launches"]["flash_attention"],
-         "launches_by_run": {"hymba_served": lm["launches"][
-             "flash_attention"]},
+         "launches": sum(flash_runs.values()),
+         "launches_by_run": flash_runs,
          "shape": win["shape"], "window": win["window"],
          "max_abs_err": win["max_abs_err"], "ms": win["ms"],
          "plain_ms": win["plain_ms"], "bound_ms": win["bound_ms"],
@@ -2689,6 +3179,7 @@ def main(argv=None) -> int:
              "small_serve": small, "serve": runs, "breakdown": breakdown,
              "flash_attention": flash, "ssm_scan": scan,
              "small_lm": small_lm, "lm": lm, "lm_breakdown": lm_breakdown,
+             "families": families,
              "open_loop": open_loop, "autotune": autotune,
              "engine": engine, "cluster": cluster,
              "coded_runtime": coded_runtime, "kernels": kernels},

@@ -1,5 +1,4 @@
-"""Architecture configs (copies of the reference's, for the families the
-port runs) + shape specs."""
+"""Architecture configs (copies of the reference's) + shape specs."""
 from .base import SHAPES, ArchConfig, ShapeSpec
 from .registry import (ARCH_NAMES, PORTED_FAMILIES, check_family, get_arch,
                        get_shape)

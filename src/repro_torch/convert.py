@@ -112,8 +112,10 @@ def lm_params_from_reference(tree, cfg):
     ``tree`` is the reference's ``init_params`` tree with numpy leaves
     (``jax.tree.map(np.asarray, params)``): ``embed``, ``layers`` (stacked
     on a leading layer axis when ``cfg.use_scan``, else a list of per-layer
-    dicts), ``final_norm`` and, untied, ``lm_head``.  Each leaf keeps its
-    dtype (``A_log`` and ``D`` are float32 in every model).
+    dicts; a MoE layer's ``moe`` subtree nests ``shared``), ``final_norm``
+    and, untied, ``lm_head`` (per codebook for audio, as ``embed``).  Each
+    leaf keeps its dtype (``A_log``, ``D`` and the MoE ``router`` are
+    float32 in every model).
     """
     from .models import LM
     state = _lm_state(tree, cfg)

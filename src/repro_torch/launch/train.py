@@ -16,6 +16,8 @@ Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
         --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch qwen2-moe-a2.7b --smoke --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch repro-100m \
         --steps 300 --batch 32 --seq 1024 --ckpt-dir /tmp/ckpt --resume
 """
@@ -92,8 +94,9 @@ def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str | None,
     losses = []
     t0 = time.time()
     for step in range(start, steps):
-        batch_dev = {"tokens": torch.as_tensor(gen(step)["tokens"],
-                                               dtype=torch.long, device=dev)}
+        # tokens, and a vlm's vision_embeds
+        batch_dev = {k: torch.as_tensor(v, device=dev)
+                     for k, v in gen(step).items()}
         if coded_w is not None:
             batch_dev["coded_weights"] = coded_w
         params, opt, metrics = step_fn(params, opt, batch_dev, step)

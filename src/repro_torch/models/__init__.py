@@ -1,5 +1,6 @@
-"""The language model of the port (dense, ssm and hybrid families):
-layers, attention, Mamba, blocks and the LM, for serving and training."""
+"""The language model of the port (dense, moe, ssm, hybrid, vlm and audio
+families): layers, attention, Mamba, MoE, blocks and the LM, for serving
+and training."""
 from .layers import cross_entropy_chunked
 from .lm import (LM, DecodeState, compute_logits, decode_step, embed_tokens,
                  forward_hidden, gathered_logits_fn, init_decode_state,

@@ -1,14 +1,16 @@
 """Decoder blocks: attention / SSM / hybrid mixers over one layer's weights.
 
-Counterpart of the reference's ``models/blocks.py`` for the dense, ssm and
-hybrid families.  A block is ``x + mixer(norm(x))`` then ``x +
-ffn(norm(x))``; the mixer is GQA attention (dense), Mamba (ssm), or both in
-parallel (hybrid — hymba's parallel attn+mamba heads).  With
-``cfg.coded`` and decode weights, the FFN's down-projection is the SAC-coded
-contraction (:func:`repro_torch.runtime.coded.coded_contraction`); the MoE
-branch of the reference's ``_ffn`` belongs to a later slice (ROADMAP A12).
-``p`` is one layer of :class:`repro_torch.models.lm.LM` (``p.attn["wq"]``,
-``p.ssm["A_log"]``, ``p.mlp["w_up"]``, ...).
+Counterpart of the reference's ``models/blocks.py``.  A block is ``x +
+mixer(norm(x))`` then ``x + ffn(norm(x))``; the mixer is GQA attention
+(dense, moe, vlm, audio), Mamba (ssm), or both in parallel (hybrid —
+hymba's parallel attn+mamba heads).  The FFN is the MoE block
+(:func:`repro_torch.models.moe.moe_block`) when the config has experts,
+else the (gated) MLP; with ``cfg.coded`` and decode weights, the MLP's
+down-projection is the SAC-coded contraction
+(:func:`repro_torch.runtime.coded.coded_contraction`; the MoE branch
+ignores ``cfg.coded``, as the reference's does).  ``p`` is one layer of
+:class:`repro_torch.models.lm.LM` (``p.attn["wq"]``, ``p.ssm["A_log"]``,
+``p.mlp["w_up"]``, ``p.moe["router"]``, ...).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from ..core import MatDotCode, chebyshev_roots
 from ..runtime.coded import coded_contraction, coded_generators
 from .attention import attention, decode_attention
 from .layers import gated_mlp, mlp_hidden, rms_norm, rope
+from .moe import moe_block
 from .ssm import mamba_block, mamba_step
 
 __all__ = ["block_forward", "block_decode_step"]
@@ -61,8 +64,14 @@ def _matdot_generators(K: int, N: int, device: torch.device):
 
 
 def _ffn(p, x, cfg, coded_weights=None):
+    """Returns ``(out, moe_aux_loss)``; the loss is ``None`` without
+    experts (the reference's is a zero there)."""
+    if cfg.has_moe:
+        B, L, d = x.shape
+        out, aux = moe_block(p.moe, x.reshape(B * L, d), cfg)
+        return out.reshape(B, L, d), aux
     if not cfg.d_ff:
-        return torch.zeros_like(x)
+        return torch.zeros_like(x), None
     if cfg.coded and coded_weights is not None:
         # SAC-coded down-projection: straggler-tolerant TP contraction over
         # N = len(coded_weights) workers
@@ -72,8 +81,8 @@ def _ffn(p, x, cfg, coded_weights=None):
         h = mlp_hidden(x, p.mlp, cfg.mlp_act)
         out = coded_contraction(h.reshape(B * L, -1), p.mlp["w_down"], G_A,
                                 G_B, coded_weights)
-        return out.reshape(B, L, d)
-    return gated_mlp(x, p.mlp, cfg.mlp_act)
+        return out.reshape(B, L, d), None
+    return gated_mlp(x, p.mlp, cfg.mlp_act), None
 
 
 def block_forward(p, x: torch.Tensor, cfg, positions, window: int, *,
@@ -84,8 +93,10 @@ def block_forward(p, x: torch.Tensor, cfg, positions, window: int, *,
     ``window``: the layer's sliding window as a Python int (0: full).
     ``coded_weights``: the coded FFN's (N,) decode vector (with
     ``cfg.coded``; ``None`` runs the plain FFN).
-    Returns ``(x', kv or None, ssm_state or None)`` — kv = (k, v) for
-    caching; ssm_state = (conv_tail, h_final) when ``return_state``.
+    Returns ``(x', kv or None, ssm_state or None, moe_aux or None)`` — kv
+    = (k, v) for caching; ssm_state = (conv_tail, h_final) when
+    ``return_state``; moe_aux the MoE block's load-balance loss (float32
+    scalar) when the config has experts.
     """
     h = rms_norm(x, p.mixer_norm, cfg.norm_eps)
     kv = ssm_state = None
@@ -108,9 +119,9 @@ def block_forward(p, x: torch.Tensor, cfg, positions, window: int, *,
         attn_out, kv = _attn_forward(p.attn, h, cfg, positions, window,
                                      use_kernels)
         x = x + attn_out
-    x = x + _ffn(p, rms_norm(x, p.ffn_norm, cfg.norm_eps), cfg,
-                 coded_weights)
-    return x, kv, ssm_state
+    ffn_out, aux = _ffn(p, rms_norm(x, p.ffn_norm, cfg.norm_eps), cfg,
+                        coded_weights)
+    return x + ffn_out, kv, ssm_state, aux
 
 
 def block_decode_step(p, x: torch.Tensor, cfg, pos: int, window: int,
@@ -151,5 +162,5 @@ def block_decode_step(p, x: torch.Tensor, cfg, pos: int, window: int,
         new_ssm = (conv, hh)
     else:
         x = x + attend(h)
-    x = x + _ffn(p, rms_norm(x, p.ffn_norm, cfg.norm_eps), cfg)
+    x = x + _ffn(p, rms_norm(x, p.ffn_norm, cfg.norm_eps), cfg)[0]
     return x, kv_cache, new_ssm

@@ -1,10 +1,18 @@
 """Decoder-only LM assembled from an ArchConfig: the serving path.
 
-Counterpart of the reference's ``models/lm.py`` for the dense, ssm and
-hybrid families (:func:`repro_torch.configs.check_family` raises for the
-others).  The parameters live in an :class:`LM` module whose
-``state_dict`` keys follow the reference's tree (``embed``,
-``layers.{i}.attn.wq``, ``layers.{i}.ssm.A_log``, ``final_norm``,
+Counterpart of the reference's ``models/lm.py``, for every family:
+
+* dense / moe — GQA attention + (gated MLP | MoE) blocks
+* ssm — Mamba-1 blocks (attention-free)
+* hybrid — parallel attention+Mamba heads per block (hymba)
+* vlm — backbone LM consuming [vision embeds ; token embeds] in the
+  training loss; serving prefills the token stream only, as the reference
+* audio — n_codebooks parallel token streams, summed embeddings, one LM
+  head per codebook (musicgen over EnCodec tokens)
+
+The parameters live in an :class:`LM` module whose ``state_dict`` keys
+follow the reference's tree (``embed``, ``layers.{i}.attn.wq``,
+``layers.{i}.ssm.A_log``, ``layers.{i}.moe.shared.w_up``, ``final_norm``,
 ``lm_head``, ...), one submodule per layer in a ``ModuleList`` instead of a
 stacked layer axis.  The functions mirror the reference's:
 ``embed_tokens``, ``forward_hidden``, ``compute_logits``,
@@ -72,7 +80,16 @@ class _Layer(nn.Module):
                 "A_log": P(di, s, dt=torch.float32),
                 "D": P(di, dt=torch.float32), "out_proj": P(di, d)})
         self.ffn_norm = P(d)
-        if cfg.d_ff:
+        if cfg.has_moe:
+            E, f = cfg.n_experts, cfg.d_ff_expert
+            moe = {"router": P(d, E, dt=torch.float32), "w_gate": P(E, d, f),
+                   "w_up": P(E, d, f), "w_down": P(E, f, d)}
+            if cfg.n_shared_experts:
+                fs = f * cfg.n_shared_experts
+                moe["shared"] = nn.ParameterDict({
+                    "w_gate": P(d, fs), "w_up": P(d, fs), "w_down": P(fs, d)})
+            self.moe = nn.ParameterDict(moe)
+        elif cfg.d_ff:
             mlp = {"w_up": P(d, cfg.d_ff), "w_down": P(cfg.d_ff, d)}
             if cfg.mlp_act != "gelu":
                 mlp["w_gate"] = P(d, cfg.d_ff)
@@ -88,21 +105,26 @@ class LM(nn.Module):
         check_family(cfg)
         self.cfg = cfg
         d, Vp = cfg.d_model, cfg.padded_vocab()
-        self.embed = _param((Vp, d), dtype, device)
+        cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+        self.embed = _param(cb + (Vp, d), dtype, device)
         self.layers = nn.ModuleList(_Layer(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
         self.final_norm = _param((d,), dtype, device)
         if not cfg.tie_embeddings:
-            self.lm_head = _param((d, Vp), dtype, device)
+            self.lm_head = _param(cb + (d, Vp), dtype, device)
 
 
 @torch.no_grad()
 def init_params(cfg, *, device=None, dtype: torch.dtype | None = None,
                 generator: torch.Generator | None = None) -> LM:
     """Random weights with the reference's distributions (``models/
-    layers.py`` ``init_dense``, ``models/ssm.py`` ``init_mamba_params``):
-    scaled normals drawn in float32 and cast to ``dtype`` (the config's by
-    default), S4D-real ``A_log`` and ``D`` in float32.
+    layers.py`` ``init_dense``, ``models/ssm.py`` ``init_mamba_params``,
+    ``models/moe.py`` ``init_moe_params``, ``models/lm.py``
+    ``init_params``): scaled normals drawn in float32 and cast to
+    ``dtype`` (the config's by default); S4D-real ``A_log``, ``D`` and the
+    MoE ``router`` (``init_dense``) in float32; expert weights
+    ``sqrt(2/(d+f))·N(0,1)``; embeddings, and per-codebook heads,
+    ``d^-½·N(0,1)``.
 
     ``device=None`` means the card (raises without one).  Draws come from
     ``generator`` (a ``torch.Generator`` on ``device``; seeded 0 when not
@@ -143,12 +165,24 @@ def init_params(cfg, *, device=None, dtype: torch.dtype | None = None,
                     p["A_log"]))
             p["D"].fill_(1.0)
             dense(p["out_proj"])
-        if cfg.d_ff:
+        if cfg.has_moe:
+            p = layer.moe
+            dense(p["router"])
+            sg = math.sqrt(2.0 / (cfg.d_model + cfg.d_ff_expert))
+            for name in ("w_gate", "w_up", "w_down"):
+                normal(p[name], sg)
+            if cfg.n_shared_experts:
+                for w in p["shared"].values():
+                    dense(w)
+        elif cfg.d_ff:
             for w in layer.mlp.values():
                 dense(w)
     model.final_norm.fill_(1.0)
     if not cfg.tie_embeddings:
-        dense(model.lm_head)
+        if cfg.n_codebooks:
+            normal(model.lm_head, cfg.d_model ** -0.5)
+        else:
+            dense(model.lm_head)
     return model
 
 
@@ -165,8 +199,12 @@ def layer_windows(cfg) -> list[int]:
 
 
 def embed_tokens(params: LM, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """tokens (B, L) integer → (B, L, d)."""
-    x = params.embed[tokens]
+    """tokens (B, L) integer — or (B, L, n_cb) for audio — → (B, L, d)."""
+    if cfg.n_codebooks:
+        x = sum(params.embed[c][tokens[..., c]]
+                for c in range(cfg.n_codebooks))
+    else:
+        x = params.embed[tokens]
     if cfg.pos_embed == "sinusoidal":
         pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
@@ -174,63 +212,97 @@ def embed_tokens(params: LM, tokens: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def forward_hidden(params: LM, x: torch.Tensor, cfg, positions, *,
-                   use_kernels: bool = True,
-                   coded_weights=None) -> torch.Tensor:
-    """Run all decoder blocks and the final norm.  x (B, L, d) → (B, L, d).
-    (The reference also returns the MoE auxiliary loss, which is zero for
-    the families ported here.)  ``coded_weights``: the coded FFN's decode
-    vector (with ``cfg.coded``).  With ``cfg.remat`` under autograd each
-    layer is recomputed in the backward pass (``torch.utils.checkpoint``):
-    memory only, the numbers are the same."""
-    check_family(cfg)
+                   use_kernels: bool = True, coded_weights=None):
+    """Run all decoder blocks and the final norm.  x (B, L, d) → ((B, L,
+    d), moe_aux_loss): the loss is the mean of the layers' MoE
+    load-balance losses (float32; zero without experts).
+    ``coded_weights``: the coded FFN's decode vector (with ``cfg.coded``).
+    With ``cfg.remat`` under autograd each layer is recomputed in the
+    backward pass (``torch.utils.checkpoint``): memory only, the numbers
+    are the same."""
     remat = cfg.remat and torch.is_grad_enabled()
+    auxes = []
     for p_l, win in zip(params.layers, layer_windows(cfg)):
         def layer(x, p_l=p_l, win=win):
-            return block_forward(p_l, x, cfg, positions, win,
-                                 use_kernels=use_kernels,
-                                 coded_weights=coded_weights)[0]
-        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
-    return rms_norm(x, params.final_norm, cfg.norm_eps)
+            x, _, _, aux = block_forward(p_l, x, cfg, positions, win,
+                                         use_kernels=use_kernels,
+                                         coded_weights=coded_weights)
+            return x, aux
+        x, aux = checkpoint(layer, x, use_reentrant=False) if remat \
+            else layer(x)
+        auxes.append(aux)
+    aux = torch.stack(auxes).mean() if cfg.has_moe else \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(x, params.final_norm, cfg.norm_eps), aux
 
 
-def compute_logits(params: LM, hidden: torch.Tensor, cfg) -> torch.Tensor:
-    """hidden (..., d) → logits over the (padded) vocab."""
-    return gathered_logits_fn(params, cfg)(hidden)
+def compute_logits(params: LM, hidden: torch.Tensor, cfg,
+                   codebook: int | None = None) -> torch.Tensor:
+    """hidden (..., d) → logits over the (padded) vocab (of ``codebook``
+    for audio)."""
+    return gathered_logits_fn(params, cfg, codebook)(hidden)
 
 
-def gathered_logits_fn(params: LM, cfg):
-    """``h ↦ logits`` through the (tied or untied) output head.  The
-    reference gathers the head's FSDP shard here once per loss; the port
-    holds the whole head on one device, so this is the plain product."""
+def gathered_logits_fn(params: LM, cfg, codebook: int | None = None):
+    """``h ↦ logits`` through the (tied or untied) output head, the
+    ``codebook``-th for audio.  The reference gathers the head's FSDP
+    shard here once per loss; the port holds the whole head on one device,
+    so this is the plain product."""
     if cfg.tie_embeddings:
-        table = params.embed
+        table = params.embed if not cfg.n_codebooks \
+            else params.embed[codebook]
         return lambda h: h @ table.T
-    head = params.lm_head
+    head = params.lm_head if not cfg.n_codebooks \
+        else params.lm_head[codebook]
     return lambda h: h @ head
 
 
+def _all_logits(params: LM, h: torch.Tensor, cfg) -> torch.Tensor:
+    """(B, 1, V) logits — or (B, 1, n_cb, V) for audio."""
+    if cfg.n_codebooks:
+        return torch.stack([compute_logits(params, h, cfg, c)
+                            for c in range(cfg.n_codebooks)], dim=2)
+    return compute_logits(params, h, cfg)
+
+
 def lm_loss(params: LM, batch: dict, cfg) -> torch.Tensor:
-    """Next-token CE loss (float32) over ``batch["tokens"]`` (B, L), a
-    tensor on the parameters' device; ``batch["coded_weights"]`` (N,), when
-    present, runs the coded FFN.  The layers run the kernels' plain
-    versions (autograd differentiates them)."""
-    check_family(cfg)
+    """Next-token CE loss (float32) over ``batch["tokens"]`` (B, L) — (B,
+    L, n_cb) for audio, the mean over codebooks — a tensor on the
+    parameters' device.  For vlm, ``batch["vision_embeds"]`` (B, n_vis, d)
+    is prepended to the token embeddings and only text positions are
+    scored; with experts, ``0.01·`` the MoE load-balance loss is added;
+    ``batch["coded_weights"]`` (N,), when present, runs the coded FFN.
+    The layers run the kernels' plain versions (autograd differentiates
+    them)."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     x = embed_tokens(params, tokens, cfg)
+    n_vis = 0
+    if cfg.family == "vlm":
+        vis = batch["vision_embeds"].to(x.dtype)        # (B, n_vis, d)
+        n_vis = vis.shape[1]
+        x = torch.cat([vis, x], dim=1)
     L = x.shape[1]
     positions = torch.arange(L, device=x.device)[None].expand(B, L)
-    h = forward_hidden(params, x, cfg, positions, use_kernels=False,
-                       coded_weights=batch.get("coded_weights"))
+    h, moe_aux = forward_hidden(params, x, cfg, positions, use_kernels=False,
+                                coded_weights=batch.get("coded_weights"))
+    h = h[:, n_vis:]                # text positions only
     h = h[:, :-1]                   # predict token t+1 from position t
     T = h.shape[0] * h.shape[1]
     hidden = h.reshape(T, cfg.d_model)
+    aux_term = 0.01 * moe_aux if cfg.has_moe else 0.0
     # at most 32 chunks, each a multiple of 512 rows (the reference's rule)
     chunk = max(cfg.loss_chunk, -(-T // 32))
     chunk = ((chunk + 511) // 512) * 512
+    if cfg.n_codebooks:
+        losses = [cross_entropy_chunked(
+            gathered_logits_fn(params, cfg, c), hidden,
+            tokens[:, 1:, c].reshape(T), chunk=chunk)
+            for c in range(cfg.n_codebooks)]
+        return sum(losses) / cfg.n_codebooks + aux_term
     tgt = tokens[:, 1:].reshape(T)
     return cross_entropy_chunked(gathered_logits_fn(params, cfg), hidden,
-                                 tgt, chunk=chunk)
+                                 tgt, chunk=chunk) + aux_term
 
 
 class DecodeState(NamedTuple):
@@ -269,21 +341,22 @@ def prefill(params: LM, tokens: torch.Tensor, cfg,
             max_seq: int | None = None, *, use_kernels: bool = True):
     """Process a full prompt, build the decode state, return last logits.
 
-    tokens (B, L) on the parameters' device → (logits (B, 1, V),
-    :class:`DecodeState` at position L).  The KV cache is built at
-    ``max_seq`` (≥ L) slots, or as a ring buffer of the window for
-    window-only archs; the SSM state comes from the scan kernel.
+    tokens (B, L) — (B, L, n_cb) for audio — on the parameters' device →
+    (logits (B, 1, V) — (B, 1, n_cb, V) — and :class:`DecodeState` at
+    position L).  A vlm prefills its token stream only, as the reference
+    does (vision embeddings enter through :func:`lm_loss`).  The KV cache
+    is built at ``max_seq`` (≥ L) slots, or as a ring buffer of the window
+    for window-only archs; the SSM state comes from the scan kernel.
     """
-    check_family(cfg)
     B, L = tokens.shape[:2]
     S = max_seq or L
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(L, device=x.device)[None].expand(B, L)
     state = init_decode_state(cfg, B, S, dtype=x.dtype, device=x.device)
     for i, (p_l, win) in enumerate(zip(params.layers, layer_windows(cfg))):
-        x, kv, ssm = block_forward(p_l, x, cfg, positions, win,
-                                   return_state=cfg.has_ssm,
-                                   use_kernels=use_kernels)
+        x, kv, ssm, _ = block_forward(p_l, x, cfg, positions, win,
+                                      return_state=cfg.has_ssm,
+                                      use_kernels=use_kernels)
         if cfg.has_attention:
             Scap = state.kv_k.shape[3]
             for cache, t in zip((state.kv_k, state.kv_v), kv):
@@ -295,19 +368,18 @@ def prefill(params: LM, tokens: torch.Tensor, cfg,
             state.conv[i] = ssm[0]
             state.ssm_h[i] = ssm[1]
     h = rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = compute_logits(params, h[:, -1:], cfg)
-    return logits, state._replace(pos=L)
+    return _all_logits(params, h[:, -1:], cfg), state._replace(pos=L)
 
 
 def decode_step(params: LM, tokens: torch.Tensor, state: DecodeState, cfg):
-    """One new token with existing state.  tokens (B, 1).
+    """One new token with existing state.  tokens (B, 1) — (B, 1, n_cb)
+    for audio.
 
-    Returns (logits (B, 1, V), new state).  The KV caches are updated in
-    place.  For window-only archs the write position wraps (ring buffer);
-    masking uses absolute positions, so correctness holds as long as the
-    cache holds at least the window.
+    Returns (logits (B, 1, V) — (B, 1, n_cb, V) — and the new state).
+    The KV caches are updated in place.  For window-only archs the write
+    position wraps (ring buffer); masking uses absolute positions, so
+    correctness holds as long as the cache holds at least the window.
     """
-    check_family(cfg)
     x = embed_tokens(params, tokens, cfg)
     pos = int(state.pos)
     if cfg.pos_embed == "sinusoidal":
@@ -334,7 +406,7 @@ def decode_step(params: LM, tokens: torch.Tensor, state: DecodeState, cfg):
             convs.append(ssm[0])
             hs.append(ssm[1])
     h = rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = compute_logits(params, h, cfg)
+    logits = _all_logits(params, h, cfg)
     new_state = DecodeState(
         state.kv_k, state.kv_v,
         torch.stack(convs) if has_ssm else (),

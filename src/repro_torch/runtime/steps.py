@@ -45,7 +45,8 @@ def decayed_names(named: dict, cfg) -> set:
     reference's layout.  With ``cfg.use_scan`` the reference stacks each
     per-layer leaf along a leading layer axis, so a layer's norm scales,
     ``D``, ``dt_bias`` and ``conv_b`` are matrices there and decay; the
-    final norm does not."""
+    final norm does not.  The MoE router (float32 in every model), the
+    expert weights (ndim 3) and the codebook tables decay."""
     stacked = "layers." if cfg.use_scan else None
     return {k for k, p in named.items()
             if p.ndim + bool(stacked and k.startswith(stacked)) >= 2}
@@ -60,7 +61,9 @@ def make_train_step(cfg, schedule=None, *, max_grad_norm: float = 1.0,
     ``params`` is an :class:`~repro_torch.models.LM` on the step's device,
     updated in place and returned; ``opt_state`` an :class:`~repro_torch.
     optim.AdamWState` over its named parameters; ``batch`` holds
-    ``tokens`` (B, L) and, for the coded FFN, ``coded_weights`` (N,).
+    ``tokens`` (B, L) — (B, L, n_cb) for audio — and, for a vlm,
+    ``vision_embeds`` (B, n_vis, d), for the coded FFN ``coded_weights``
+    (N,).
     ``metrics``: ``loss``, ``grad_norm``, ``lr`` and ``step`` (tensors on
     the device; reading them waits for the step)."""
     check_family(cfg)
@@ -69,9 +72,10 @@ def make_train_step(cfg, schedule=None, *, max_grad_norm: float = 1.0,
 
     def train_step(params, opt_state, batch, step):
         inputs = {"tokens": _on(dev, params, batch["tokens"])}
-        if batch.get("coded_weights") is not None:
-            inputs["coded_weights"] = torch.as_tensor(
-                batch["coded_weights"], dtype=torch.float32, device=dev)
+        for key in ("vision_embeds", "coded_weights"):
+            if batch.get(key) is not None:
+                inputs[key] = torch.as_tensor(batch[key], dtype=torch.float32,
+                                              device=dev)
         named = dict(params.named_parameters())
         decay = decayed_names(named, cfg)
         try:
@@ -102,7 +106,10 @@ def make_train_step(cfg, schedule=None, *, max_grad_norm: float = 1.0,
 def make_prefill_step(cfg, max_seq: int | None = None, *, device=None,
                       use_kernels: bool = True):
     """``prefill_step(params, batch) -> (logits (B, 1, V), DecodeState)``
-    over ``batch["tokens"]`` (B, L); caches sized for ``max_seq``.
+    over ``batch["tokens"]`` (B, L); caches sized for ``max_seq``.  For
+    audio the tokens are (B, L, n_cb) and the logits (B, 1, n_cb, V).  A
+    vlm prefills its token stream only, as the reference's step does:
+    vision embeddings are folded in by the training loss alone.
 
     ``use_kernels`` is for comparisons only: ``False`` runs the kernels'
     plain versions on any device, so a check can hold a prefill through the
@@ -122,7 +129,8 @@ def make_prefill_step(cfg, max_seq: int | None = None, *, device=None,
 
 def make_decode_step(cfg, *, device=None):
     """``serve_step(params, tokens (B, 1), state) -> (logits (B, 1, V),
-    state')``; the state's KV caches are updated in place."""
+    state')`` — (B, 1, n_cb) tokens and (B, 1, n_cb, V) logits for audio;
+    the state's KV caches are updated in place."""
     check_family(cfg)
     dev = resolve_device(device)
 

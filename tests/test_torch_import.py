@@ -15,7 +15,8 @@ PORT = ROOT / "src" / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.core", "repro_torch.kernels",
            "repro_torch.serving", "repro_torch.launch.serve",
            "repro_torch.convert", "repro_torch.cluster",
-           "repro_torch.models", "repro_torch.runtime.steps",
+           "repro_torch.models", "repro_torch.models.moe",
+           "repro_torch.runtime.steps",
            "repro_torch.configs", "repro_torch.core.simulate",
            "repro_torch.design", "repro_torch.obs", "repro_torch.ioutil",
            "repro_torch.serving.loadgen", "repro_torch.cluster.config",

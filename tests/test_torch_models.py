@@ -24,7 +24,8 @@ from repro.models import embed_tokens as ref_embed_tokens
 from repro.models import forward_hidden as ref_forward_hidden
 from repro.models import init_params as ref_init_params
 from repro.models import prefill as ref_prefill
-from repro_torch.configs import ARCH_NAMES, get_arch
+from repro_torch.configs import (ARCH_NAMES, PORTED_FAMILIES, check_family,
+                                 get_arch)
 from repro_torch.configs.base import ArchConfig as PortArchConfig
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.models import (LM, compute_logits, decode_step,
@@ -40,7 +41,11 @@ HYB = ArchConfig("hyb-s", "hybrid", 3, 64, 4, 2, 128, 97, ssm_state=4,
                  d_inner=128, sliding_window=8, global_attn_layers=(1,),
                  dtype="float32")
 HYMBA = ref_get_arch("hymba-1.5b", smoke=True)
-CONFIGS = [DENSE, SSM, HYB, HYMBA]
+# the MoE, vlm and audio families' smoke configs
+NEW = [ref_get_arch(n, smoke=True) for n in (
+    "qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "llava-next-mistral-7b",
+    "musicgen-large")]
+CONFIGS = [DENSE, SSM, HYB, HYMBA] + NEW
 
 
 def _port_cfg(cfg):
@@ -55,22 +60,30 @@ def _models(cfg):
 
 
 def _tokens(cfg, B=2, L=12, seed=0):
-    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, L))
+    """(B, L) tokens — (B, L, n_cb) for audio."""
+    shape = (B, L, cfg.n_codebooks) if cfg.n_codebooks else (B, L)
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
 
 
 def _ref_full_logits(params, tokens, cfg):
     x = ref_embed_tokens(params, tokens, cfg)
-    B, L = tokens.shape
+    B, L = tokens.shape[:2]
     pos = jnp.broadcast_to(jnp.arange(L)[None], (B, L))
     h, _ = ref_forward_hidden(params, x, cfg, pos)
+    if cfg.n_codebooks:
+        return np.stack([np.asarray(ref_compute_logits(params, h, cfg, c))
+                         for c in range(cfg.n_codebooks)], axis=2)
     return np.asarray(ref_compute_logits(params, h, cfg))
 
 
 def _full_logits(model, tokens, cfg):
     tokens = torch.as_tensor(tokens)
-    B, L = tokens.shape
+    B, L = tokens.shape[:2]
     pos = torch.arange(L)[None].expand(B, L)
-    h = forward_hidden(model, embed_tokens(model, tokens, cfg), cfg, pos)
+    h, _ = forward_hidden(model, embed_tokens(model, tokens, cfg), cfg, pos)
+    if cfg.n_codebooks:
+        return torch.stack([compute_logits(model, h, cfg, c)
+                            for c in range(cfg.n_codebooks)], 2).numpy()
     return compute_logits(model, h, cfg).numpy()
 
 
@@ -120,7 +133,13 @@ def test_prefill_and_decode_match_reference(cfg):
 @pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c.name)
 def test_prefill_plus_decode_matches_own_forward(cfg):
     """The port's prefill(t<n) + decode(t>=n) equals its own full forward
-    (the reference's test_prefill_plus_decode_matches_forward)."""
+    (the reference's test_prefill_plus_decode_matches_forward).  An MoE
+    config runs drop-free here (capacity factor E / k): its capacity
+    follows the number of tokens in a call, so with drops a prefill of n
+    tokens and a forward of L route differently by design."""
+    if cfg.has_moe:
+        cfg = cfg.replace(capacity_factor=cfg.n_experts /
+                          cfg.experts_per_token)
     _, model = _models(cfg)
     pcfg = _port_cfg(cfg)
     B, L, n = 2, 12, 8
@@ -188,18 +207,41 @@ def test_steps_match_functions_and_take_numpy_tokens():
     assert state.pos == 10
 
 
-def test_state_dict_keys_follow_the_reference_tree():
-    params = ref_init_params(jax.random.key(0), HYB, jnp.float32)
+def _ref_keys(cfg) -> set:
+    """The reference tree's leaves as the port's ``state_dict`` names."""
+    params = ref_abstract_params(cfg, jnp.float32)
     keys = set()
     for path, _ in jax.tree_util.tree_flatten_with_path(params)[0]:
         names = [p.key for p in path]
         if names[0] == "layers":
             keys.update(f"layers.{i}." + ".".join(names[1:])
-                        for i in range(HYB.n_layers))
+                        for i in range(cfg.n_layers))
         else:
             keys.add(".".join(names))
+    return keys
+
+
+def test_state_dict_keys_follow_the_reference_tree():
     model = init_params(_port_cfg(HYB), device="cpu")
-    assert set(model.state_dict()) == keys
+    assert set(model.state_dict()) == _ref_keys(HYB)
+
+
+@pytest.mark.parametrize("cfg", [NEW[0], NEW[3]], ids=lambda c: c.name)
+def test_state_dict_keys_follow_the_reference_tree_moe_audio(cfg):
+    """An MoE layer's ``moe.{router, w_*, shared.w_*}`` and the audio
+    family's per-codebook ``embed`` and ``lm_head``, with the reference's
+    shapes and the router in float32 (as the reference's tree)."""
+    model = init_params(_port_cfg(cfg), device="cpu")
+    assert set(model.state_dict()) == _ref_keys(cfg)
+    ref = ref_abstract_params(cfg, jnp.float32)
+    assert tuple(model.embed.shape) == ref["embed"].shape
+    if cfg.n_codebooks:
+        assert tuple(model.lm_head.shape) == ref["lm_head"].shape == (
+            cfg.n_codebooks, cfg.d_model, cfg.padded_vocab())
+    else:
+        assert "layers.1.moe.shared.w_down" in model.state_dict()
+        assert ref["layers"]["moe"]["router"].dtype == jnp.float32
+        assert model.layers[1].moe["router"].dtype == torch.float32
 
 
 def test_converter_takes_per_layer_lists():
@@ -266,29 +308,18 @@ def test_init_params_distributions_and_seed():
     assert abs(float(wq.std()) / want_std - 1) < 0.1
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
-def test_other_families_raise(family):
-    extra = {"moe": dict(n_experts=4, experts_per_token=2, d_ff_expert=16,
-                         d_ff=0),
-             "vlm": dict(vision_tokens=4),
-             "audio": dict(n_codebooks=4, pos_embed="sinusoidal",
-                           mlp_act="gelu")}[family]
-    base = dict(name="x", family=family, n_layers=2, d_model=64, n_heads=4,
-                n_kv_heads=2, d_ff=128, vocab_size=97, dtype="float32")
-    cfg = PortArchConfig(**{**base, **extra})
-    with pytest.raises(NotImplementedError, match="A12"):
-        init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_prefill_step(cfg, device="cpu")
-
-
-@pytest.mark.parametrize("name", ["kimi-k2-1t-a32b", "qwen2-moe-a2.7b",
-                                  "llava-next-mistral-7b", "musicgen-large"])
-def test_registry_refuses_unported_archs(name):
-    with pytest.raises(NotImplementedError, match="A12"):
-        get_arch(name)
+def test_registry_resolves_every_reference_arch_and_no_other():
+    """All eleven architectures resolve, full and smoke, and their
+    families pass ``check_family``; an unknown name or family raises."""
+    for name in ARCH_NAMES + ("repro-100m",):
+        for smoke in (False, True):
+            check_family(get_arch(name, smoke))
+    assert {get_arch(n).family for n in ARCH_NAMES} == set(PORTED_FAMILIES)
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
+    with pytest.raises(ValueError, match="unknown family"):
+        init_params(get_arch("qwen2-moe-a2.7b", smoke=True).replace(
+            family="vision"), device="cpu")
 
 
 @pytest.fixture

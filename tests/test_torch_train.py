@@ -52,7 +52,8 @@ from repro_torch.convert import (adamw_state_from_reference,
                                  lm_params_from_reference)
 from repro_torch.data import SyntheticTokens
 from repro_torch.launch.train import build_state, main, train
-from repro_torch.models import cross_entropy_chunked, lm_loss
+from repro_torch.models import (cross_entropy_chunked, embed_tokens,
+                                forward_hidden, lm_loss)
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
                                cosine_schedule, wsd_schedule)
 from repro_torch.runtime.steps import (decayed_names, make_schedule,
@@ -60,6 +61,11 @@ from repro_torch.runtime.steps import (decayed_names, make_schedule,
 
 ROOT = Path(__file__).resolve().parents[1]
 FAMILIES = ["repro-100m", "falcon-mamba-7b", "hymba-1.5b"]
+# the MoE (with the load-balance term), vlm and audio families
+NEW_FAMILIES = ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
+                "llava-next-mistral-7b", "musicgen-large"]
+# one MoE and the audio family through the train step
+STEP_FAMILIES = FAMILIES + ["qwen2-moe-a2.7b", "musicgen-large"]
 
 
 def _rel(got, want) -> float:
@@ -130,6 +136,49 @@ def test_lm_loss_matches_reference(name, coded_N):
                                              else torch.long)
                           for k, v in batch.items()}, _port_cfg(cfg))
     assert _rel(got, want) < (1e-4 if coded_N else 1e-5)
+
+
+@pytest.mark.parametrize("name", NEW_FAMILIES)
+def test_lm_loss_matches_reference_new_families(name):
+    """1e-5 relative: the MoE configs with ``0.01·`` their load-balance
+    loss, llava with its vision embeddings prepended (which change the
+    loss: they are attended to), musicgen as the mean over its codebooks'
+    losses."""
+    cfg = ref_get_arch(name, smoke=True)
+    data = RefTokens(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2,
+                     seed=4, n_codebooks=cfg.n_codebooks,
+                     vision_tokens=cfg.vision_tokens, d_model=cfg.d_model)
+    batch = data(0)
+    params, model = _shared(cfg)
+    pcfg = _port_cfg(cfg)
+
+    ref_loss = jax.jit(ref_lm_loss, static_argnums=2)
+
+    def both(batch):
+        want = ref_loss(params, {k: jnp.asarray(v)
+                                 for k, v in batch.items()}, cfg)
+        got = lm_loss(model, {k: torch.as_tensor(v).long() if k == "tokens"
+                              else torch.as_tensor(v)
+                              for k, v in batch.items()}, pcfg)
+        assert _rel(got, want) < 1e-5
+        return float(got)
+
+    loss = both(batch)
+    if cfg.family == "vlm":
+        assert batch["vision_embeds"].shape == (2, cfg.vision_tokens,
+                                                cfg.d_model)
+        scaled = dict(batch, vision_embeds=batch["vision_embeds"] * 3.0)
+        assert abs(both(scaled) - loss) > 1e-6
+    if cfg.has_moe:
+        # the aux term is in: the loss without it is the CE alone
+        h, aux = forward_hidden(model, embed_tokens(
+            model, torch.as_tensor(batch["tokens"]).long(), pcfg), pcfg,
+            torch.arange(16)[None].expand(2, 16))
+        assert float(aux) >= 1.0 - 1e-6
+        ce = cross_entropy_chunked(
+            lambda x: x @ model.lm_head, h[:, :-1].reshape(-1, cfg.d_model),
+            torch.as_tensor(batch["tokens"][:, 1:]).long().reshape(-1))
+        assert abs(loss - float(ce) - 0.01 * float(aux)) < 1e-5
 
 
 # -------------------------------------------------------------- optimizer
@@ -224,7 +273,7 @@ def test_make_schedule_picks_wsd_for_minicpm_like_reference():
 
 # -------------------------------------------------------------- train step
 
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", STEP_FAMILIES)
 def test_decayed_names_follow_the_reference_layout(name):
     """AdamW decays the leaves with ndim >= 2 in the reference's layout,
     which stacks the layers (``use_scan``): a layer's norm scales and SSM
@@ -252,7 +301,7 @@ def test_decayed_names_follow_the_reference_layout(name):
 GRAD_ROUNDING = 1e-5
 
 
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", STEP_FAMILIES)
 def test_train_steps_match_reference_from_shared_state(name):
     """Three steps at a real learning rate (cosine, warm-up 1, peak 1e-2),
     each from the reference's state after the step before: loss and grad
@@ -277,7 +326,7 @@ def test_train_steps_match_reference_from_shared_state(name):
         pcfg, functools.partial(cosine_schedule, **kw), device="cpu")
     ref_grad = jax.jit(jax.grad(lambda p, b: ref_lm_loss(p, b, cfg)))
     data = RefTokens(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2,
-                     seed=3)
+                     seed=3, n_codebooks=cfg.n_codebooks)
 
     def port(tree):
         return lm_params_from_reference(jax.tree.map(np.asarray, tree), pcfg)
@@ -391,6 +440,22 @@ def test_checkpoint_bf16_round_trip_is_bit_exact(tmp_path):
         mgr.restore(7, {"params": {}, "opt": fresh_opt})
 
 
+def test_checkpoint_keeps_the_float32_router_of_a_bf16_moe(tmp_path):
+    """A bf16 MoE model's router is float32: it is stored as float32 (not
+    as raw bf16 bits) and restored bit for bit, the experts as bf16."""
+    cfg = get_arch("qwen2-moe-a2.7b", smoke=True).replace(dtype="bfloat16")
+    params, opt = build_state(cfg, seed=5, device="cpu")
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, {"params": params.state_dict(), "opt": opt})
+    fresh, fresh_opt = build_state(cfg, seed=6, device="cpu")
+    _, got = mgr.restore_latest({"params": fresh.state_dict(),
+                                 "opt": fresh_opt})
+    for k, v in params.state_dict().items():
+        want = torch.float32 if k.endswith("router") else torch.bfloat16
+        assert v.dtype == got["params"][k].dtype == want, k
+        assert torch.equal(got["params"][k], v), k
+
+
 # ------------------------------------------------------------- train()
 
 def _tiny():
@@ -448,6 +513,28 @@ def test_cli_trains_on_the_cpu():
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "[train] step     2 loss" in out.stdout
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "llava-next-mistral-7b",
+                                  "musicgen-large"])
+def test_cli_trains_new_families_with_a_resume(name, tmp_path, capsys):
+    """``--arch <family> --smoke`` on the CPU: 3 steps in one run, then 2
+    with checkpoints and a resume to 3, which prints the same last loss."""
+    args = ["--arch", name, "--smoke", "--device", "cpu", "--batch", "2",
+            "--seq", "32", "--seed", "1"]
+    main(args + ["--steps", "3"])
+    whole = capsys.readouterr().out
+    main(args + ["--steps", "2", "--ckpt-dir", str(tmp_path)])
+    main(args + ["--steps", "3", "--ckpt-dir", str(tmp_path), "--resume"])
+    resumed = capsys.readouterr().out
+    assert "[train] resumed from step 2" in resumed
+
+    def loss(out, step):
+        line = next(x for x in out.splitlines()
+                    if x.startswith(f"[train] step {step:5d} loss"))
+        return float(line.split()[4])
+    assert np.isfinite(loss(whole, 0)) and np.isfinite(loss(whole, 2))
+    assert loss(resumed, 2) == loss(whole, 2)
 
 
 def test_cli_without_a_card_raises(monkeypatch):
