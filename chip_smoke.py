@@ -31,19 +31,22 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
    (4 x 25/5 heads x 8192 x 64, bf16, window 1024 and full causal; to 1e-2
    elementwise and in relative Frobenius error), the
    selective scan at the sweep shapes and at hymba's (4 x 8192 x 3200 x 16,
-   bf16, B and C strided), then at falcon-mamba-7b's channel width (Dm
-   8192, the same 4 x 8192; checked on the first 512 steps), and the
-   scan's design named; kernel, plain version and library call (SDPA; none
+   bf16, B and C strided), then at falcon-mamba-7b's (Dm 8192, the same
+   4 x 8192, checked the same way), and the scan's design named; kernel, plain version and library call (SDPA; none
    for the scan) timed with CUDA events beside the card's bound.
 7. hymba-smoke in float32: the same weights on the card and on the CPU,
    prefill and decode logits within 2e-4 and 2e-3.
 8. hymba-1.5b at full width (bf16, seeded random weights): a 1 x 2048
    prefill with the kernels against the plain versions (relative Frobenius
-   error of the logits <= 5e-2), then the served run — a 4 x 8192 prefill
+   error of the logits <= 5e-2; each layer's output hidden state between
+   the two runs printed; each layer run with the kernels on the plain
+   run's input to it, against the plain run's output, to OWN_LAYER_TOL),
+   then the served run — a 4 x 8192 prefill
    and 32 greedy decode steps — with the launch counts zeroed before it:
    32 launches of each kernel, all in the prefill.
 9. Profile one full-width hymba prefill, and 4 decode steps after it, and
-   print device time by kernel.
+   print device time by kernel and by kind (GEMMs, flash, the scan,
+   dispatch, elementwise; each kernel once, summing to the busy time).
 9b. The MoE, vlm and audio families: flash at qwen2-moe-a2.7b's prefill
     (4 x 16 x 8192 x 128) and at musicgen-large's (4 x 32 x 2048 x 64),
     full causal, bf16, against its plain version per batch row and per
@@ -67,6 +70,24 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
     (prefill 2e-4, decode 2e-3, lm_loss 1e-5 relative, 3 train steps 1e-4
     as in 14c), each then trained 2 steps by the training driver on the
     card.
+9c. The dense, ssm and vlm families: flash at the served prefills of
+    gemma-2b (4 x 8/1 x 8192 x 256), qwen2.5-3b (4 x 16/2 x 8192 x 128),
+    minicpm-2b (4 x 36/36 x 8192 x 64), llava-next-mistral-7b (4 x
+    32/8 x 8192 x 128) and qwen1.5-32b (1 x 40/40 x 2048 x 128) and at
+    kimi-k2's heads (2 x 64/8 x 4096 x 112, run
+    zero-padded in the head-dim-128 instance), as in 9b; the smoke configs
+    of gemma, qwen2.5, minicpm (head dim 18), falcon-mamba and qwen1.5 card
+    against CPU as in 9b; then gemma-2b, qwen2.5-3b, minicpm-2b,
+    falcon-mamba-7b and llava-next-mistral-7b (its text stream) at full
+    width and depth (bf16, seeded weights): a 1 x 2048 prefill with the
+    kernels against the plain versions (5e-2, and each layer's own error),
+    the served 4 x 8192 prefill
+    and 32 greedy decode steps (launch counts zeroed before it: one flash
+    or scan launch per layer, all in the prefill), the computed bounds,
+    and for falcon-mamba and llava a profiled prefill and 4 decode steps
+    by kind; last, on a card that holds nothing else, qwen1.5-32b (65.6 GiB
+    of weights) with 1 x 2048 and 16 decode steps, the card's free memory
+    printed before its draw.
 10. Open-loop serving at full width (``MasterScheduler.run_open``): two
     tenants shaped like ``benchmarks/load_slo.py``'s (1024 x 16384 with
     target 3e-1 and deadline 3 s, 2048 x 32768 with 1e-2 and 8 s), L-SAC
@@ -191,14 +212,18 @@ PAPER_JOB = ["--code", "lsac_ortho", "--requests", "8"]
 # (B, H, Hkv, Lq, Lkv, d): the reference's flash sweep, hymba's heads, the
 # other head dims the kernels are built for, then the bf16 tensor-core
 # kernel's edges: Lq, Lkv off its query and key tiles (Lkv < Lq too),
-# groups of 1, 5 and 8
+# groups of 1, 5 and 8; then head dims without an instance (minicpm-smoke's
+# 18, kimi-k2's 112, zero-padded to 32 and 128), tile-aligned and off the
+# tiles with a group of 8
 FLASH_SWEEP = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 64, 64, 32),
                (1, 8, 1, 32, 32, 16), (1, 2, 1, 16, 80, 16),
                (1, 2, 2, 50, 70, 16), (1, 25, 5, 300, 300, 64),
                (2, 4, 1, 70, 70, 128), (1, 8, 1, 40, 40, 256),
                (1, 2, 2, 1, 1, 64), (1, 4, 4, 7, 130, 64),
                (1, 10, 2, 129, 129, 128), (2, 10, 2, 200, 333, 256),
-               (1, 16, 2, 300, 97, 16), (1, 16, 2, 65, 64, 32)]
+               (1, 16, 2, 300, 97, 16), (1, 16, 2, 65, 64, 32),
+               (2, 4, 4, 128, 128, 18), (1, 16, 2, 129, 200, 18),
+               (2, 4, 4, 128, 128, 112), (1, 16, 2, 129, 200, 112)]
 # (Bt, L, Dm, S): the reference's scan sweep plus odd state sizes
 SCAN_SWEEP = [(1, 32, 16, 4), (2, 48, 24, 16), (2, 100, 40, 8),
               (1, 33, 17, 16), (2, 40, 70, 5), (1, 20, 9, 32)]
@@ -207,8 +232,7 @@ SCAN_SWEEP = [(1, 32, 16, 4), (2, 48, 24, 16), (2, 100, 40, 8),
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "hymba-1.5b", 4, 8192, 32
 SFU_PER_SM_CLOCK = 16        # exp results per SM per clock (compute 9.0)
 # falcon-mamba-7b's channels (src/repro_torch/configs/falcon_mamba_7b.py)
-# and the length the scan's check against the plain loop is cut to there
-FALCON_D_INNER, SCAN_CUT_L = 8192, 512
+FALCON_D_INNER = 8192
 CARD = ""                    # nvidia-smi's name and power limit, set by main
 
 
@@ -326,13 +350,15 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
-# instances on the main paths, which must not spill (flash at d = 256 may:
-# its spill is reported), by a substring of their mangled names:
-# flash_mma_kernel<64> (hymba, musicgen), flash_mma_kernel<128> (qwen2-moe;
-# 171 registers, no spill on the H100), coded_matmul_tf32x3_kernel<true>
-# and every instance of the selective scan (its states live in registers)
+# instances on the main paths, which must not spill, by a substring of
+# their mangled names: flash_mma_kernel<64> (hymba, musicgen, minicpm),
+# flash_mma_kernel<128> (qwen2-moe, qwen2.5, llava, qwen1.5; 171 registers,
+# no spill on the H100), flash_mma_kernel<256> (gemma; 239 registers, no
+# spill), coded_matmul_tf32x3_kernel<true> and every instance of the
+# selective scan (its states live in registers)
 NO_SPILL = ("flash_mma_kernelILi64E", "flash_mma_kernelILi128E",
-            "coded_matmul_tf32x3_kernelILb1E", "ssm_scan_kernel")
+            "flash_mma_kernelILi256E", "coded_matmul_tf32x3_kernelILb1E",
+            "ssm_scan_kernel")
 
 
 def phase_build() -> dict:
@@ -349,6 +375,22 @@ def phase_build() -> dict:
                 f"{r.get('stack')} B stack, {r.get('spill_stores')} B spill "
                 f"stores, {r.get('spill_loads')} B spill loads")
     return report
+
+
+def check_flash_instances(report: dict) -> list:
+    """Each flash kernel's instances in the ptxas report are the head dims
+    the library reports: the wrapper pads against what was built."""
+    from repro_torch.kernels.flash_attention.ops import head_dims
+    dims = list(head_dims())
+    for kernel in ("flash_mma_kernel", "flash_simt_kernel"):
+        built = sorted(int(m[1]) for m in (
+            re.search(kernel + r"ILi(\d+)E", n) for n in report) if m)
+        if built != dims:
+            fail(f"{kernel} is built for head dims {built}; the library "
+                 f"reports {dims}")
+    log(f"flash instances: head dims {dims} in both kernels, as the library "
+        "reports them")
+    return dims
 
 
 def check_no_spill(report: dict) -> None:
@@ -677,7 +719,7 @@ def phase_scan(dev, gen) -> dict:
     """The scan kernel against its plain version: the sweep shapes (float32
     and bfloat16, B and C as column views of one projection), then hymba's
     prefill shape (Bt=4, L=8192, Dm=3200, S=16, bf16) and falcon-mamba-7b's
-    channel width (Dm=8192, the same 4 x 8192; checked on a cut length)."""
+    (Dm=8192, the same 4 x 8192)."""
     from repro_torch.kernels import ssm_scan
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -727,31 +769,28 @@ def phase_scan(dev, gen) -> dict:
     del args, y, h, want_y, want_h
     torch.cuda.empty_cache()
 
-    # falcon-mamba-7b's channels: checked on the first SCAN_CUT_L steps
-    # (the plain loop over 8192 steps would take seconds), timed in full
+    # falcon-mamba-7b's channels over the whole served length, checked as
+    # hymba's shape is
     Dm = FALCON_D_INNER
     args = inputs(Bt, L, Dm, S, torch.bfloat16)
-    cut = [t[:, :SCAN_CUT_L] if t.ndim == 3 else t for t in args]
-    want_y, want_h = ssm_scan_ref(*cut, return_final=True)
-    y, h = ssm_scan(*cut, return_final=True)
-    f_err = check_close(y, want_y, 5e-2, 5e-2, "ssm_scan falcon y (cut)")
-    f_h = check_close(h, want_h, 1e-4, 1e-4, "ssm_scan falcon h (cut)")
+    want_y, want_h = ssm_scan_ref(*args, return_final=True)
+    y, h = ssm_scan(*args, return_final=True)
+    f_err = check_close(y, want_y, 5e-2, 5e-2, "ssm_scan falcon y")
+    f_h = check_close(h, want_h, 1e-4, 1e-4, "ssm_scan falcon h_final")
     bound = _scan_bound(Bt, L, Dm, S)
     falcon = {"shape": [Bt, L, Dm, S], "dtype": "bfloat16",
-              "checked_length": SCAN_CUT_L, "max_abs_err": f_err,
-              "h_final_max_abs_err": f_h, **bound,
+              "max_abs_err": f_err, "h_final_max_abs_err": f_h, **bound,
               "ms": time_ms(lambda: ssm_scan(*args, return_final=True), 5)}
     log(f"ssm_scan falcon-mamba-7b {Bt}x{L}x{Dm}x{S} bf16: kernel "
         f"{falcon['ms']:.3f} ms, bound {bound['bound_ms']:.3f} ms "
-        f"({bound['bound_by']}); first "
-        f"{SCAN_CUT_L} steps vs plain: max abs err y {f_err:.3e}, h_final "
-        f"{f_h:.3e}")
+        f"({bound['bound_by']}); vs plain: max abs err y {f_err:.3e}, "
+        f"h_final {f_h:.3e}")
     log("ssm_scan design: 2 lanes per channel hold its states in registers; "
         "software-pipelined steps (next step's loads and ex2.approx exps in "
         "flight), full chunks unrolled; 128-channel x 32-step chunks, x/dt "
         "by 16-byte cp.async, B/C through registers, y as 16-byte rows; one "
         "barrier a chunk")
-    del args, cut, y, h, want_y, want_h
+    del args, y, h, want_y, want_h
     torch.cuda.empty_cache()
     row["falcon"] = falcon
     return row
@@ -860,6 +899,26 @@ class _Routing:
                 for lg in self.logits]
 
 
+class _LayerOutputs:
+    """While active, keeps each layer's output hidden state of a prefill
+    (on the host, in call order), by wrapping the ``block_forward`` that
+    ``repro_torch.models.lm`` calls.  The model code is unchanged."""
+
+    def __enter__(self):
+        from repro_torch.models import lm
+        self._lm, self._orig, self.outs = lm, lm.block_forward, []
+
+        def record(*args, **kw):
+            out = self._orig(*args, **kw)
+            self.outs.append(out[0].cpu())
+            return out
+        lm.block_forward = record
+        return self
+
+    def __exit__(self, *exc):
+        self._lm.block_forward = self._orig
+
+
 def _agreement(a: _Routing, b: _Routing) -> list:
     """Share of tokens whose top-k expert sets are equal between two runs,
     layer by layer."""
@@ -889,10 +948,65 @@ def _lm_model(name: str, dev, seed: int):
     return cfg, model, n, nbytes, draw_s
 
 
+# each layer's own error, kernels vs plain on the same input (the plain
+# run's input to that layer), relative Frobenius, by what the layer holds:
+# a Mamba layer alone (the scan), an attention layer (flash's bf16
+# products; a hybrid layer runs both), an MoE layer (a token whose top-k
+# expert set flips moves by whole experts' outputs).  Set from H100
+# readings at 1 x 2048: at most 1.1e-4 (falcon-mamba-7b), 2.7e-3-6.9e-3
+# (the attention models), 5.4e-2 (qwen2-moe-a2.7b), each at layer 0 and
+# falling with depth; a scan without D reads 0.97 (falcon) and 0.69 (hymba)
+OWN_LAYER_TOL = {"ssm": 1e-3, "attention": 2e-2, "moe": 2e-1}
+
+
+def _own_layer_tol(cfg) -> float:
+    return OWN_LAYER_TOL["moe" if cfg.has_moe else
+                         "attention" if cfg.has_attention else "ssm"]
+
+
+def _own_layer_errors(cfg, model, prompt, plain_outs, layers=None) -> list:
+    """Each layer of ``layers`` (all by default) run with the kernels on
+    the plain prefill's input to it (the embedding, or the layer before's
+    output in ``plain_outs``), against the plain prefill's output of it:
+    one layer's own error at every depth, without the cascade."""
+    from repro_torch.models.blocks import block_forward
+    from repro_torch.models.lm import embed_tokens, layer_windows
+    B, L = prompt.shape[:2]
+    positions = torch.arange(L, device=prompt.device)[None].expand(B, L)
+    wins = layer_windows(cfg)
+    out = []
+    with torch.no_grad():
+        for i in range(cfg.n_layers) if layers is None else layers:
+            x = embed_tokens(model, prompt, cfg) if i == 0 else \
+                plain_outs[i - 1].to(prompt.device)
+            y = block_forward(model.layers[i], x, cfg, positions, wins[i],
+                              return_state=cfg.has_ssm)[0]
+            out.append(rel_fro(y.cpu(), plain_outs[i]))
+    return out
+
+
+def _scan_without_d_control(cfg, model, prompt, plain_outs) -> float:
+    """Layer 0's own error with the scan kernel given D = 0 (a scan that
+    drops its skip term): what the own-layer limit must see."""
+    from repro_torch.models import ssm
+    kernel = ssm.ssm_scan
+    ssm.ssm_scan = lambda x, dt, A, B, C, D, **kw: kernel(
+        x, dt, A, B, C, torch.zeros_like(D), **kw)
+    try:
+        return _own_layer_errors(cfg, model, prompt, plain_outs, [0])[0]
+    finally:
+        ssm.ssm_scan = kernel
+
+
 def _kernels_vs_plain(cfg, model, prompt) -> dict:
     """One prefill with the kernels and one with the plain versions on the
     same prompt: the last position's logits to 5e-2 relative Frobenius
-    error (each codebook's, for audio).  For an MoE model, also the two
+    error (each codebook's, for audio), each layer's output hidden state
+    between the two runs (layer 0's, on the same input, is one layer's own
+    error; the later ones add the cascade through the layers before), and
+    each layer's own error (:func:`_own_layer_errors`) to
+    :data:`OWN_LAYER_TOL`; for a model with Mamba layers the same limit
+    must fail a scan without its D term.  For an MoE model, also the two
     runs' routing agreement; each layer's dropped share, counted on the
     card and recounted on the host from the float32 router logits, its
     busiest expert's load over the capacity and the mean cosine similarity
@@ -903,24 +1017,53 @@ def _kernels_vs_plain(cfg, model, prompt) -> dict:
     L = prompt.shape[1]
     rec_k, rec_p = (_Routing(witness=True), _Routing()) if cfg.has_moe \
         else (None, None)
-    with rec_k or contextlib.nullcontext():
-        with_k, _ = make_prefill_step(cfg, L)(model, {"tokens": prompt})
+    with rec_k or contextlib.nullcontext(), _LayerOutputs() as hid_k:
+        with_k, state = make_prefill_step(cfg, L)(model, {"tokens": prompt})
+    del state
     t0 = time.perf_counter()
-    with rec_p or contextlib.nullcontext():
-        plain, _ = make_prefill_step(cfg, L, use_kernels=False)(
+    with rec_p or contextlib.nullcontext(), _LayerOutputs() as hid_p:
+        plain, state = make_prefill_step(cfg, L, use_kernels=False)(
             model, {"tokens": prompt})
     torch.cuda.synchronize()
+    del state
     row = {"prompt": list(prompt.shape),
            "plain_prefill_s": time.perf_counter() - t0,
-           "rel_fro": rel_fro(with_k, plain)}
+           "rel_fro": rel_fro(with_k, plain),
+           "hidden_rel_fro_by_layer": [rel_fro(a, b) for a, b in zip(
+               hid_k.outs, hid_p.outs)],
+           "own_layer_rel_fro": _own_layer_errors(cfg, model, prompt,
+                                                  hid_p.outs),
+           "own_layer_tol": _own_layer_tol(cfg)}
+    if cfg.has_ssm:
+        row["scan_without_d_rel_fro"] = _scan_without_d_control(
+            cfg, model, prompt, hid_p.outs)
+    del hid_k, hid_p
     if not (bool(torch.isfinite(with_k).all()) and row["rel_fro"] <= 5e-2):
         fail(f"{cfg.name} {L}-token prefill: kernels vs plain relative "
              f"Frobenius error {row['rel_fro']:.3e} (limit 5e-2) or "
              "non-finite logits")
+    own, tol = row["own_layer_rel_fro"], row["own_layer_tol"]
+    worst = max(range(len(own)), key=own.__getitem__)
+    by_layer = row["hidden_rel_fro_by_layer"]
+    shown = sorted({0, 1, 2, len(by_layer) // 4, len(by_layer) // 2,
+                    3 * len(by_layer) // 4, len(by_layer) - 1})
     log(f"{cfg.name} {'x'.join(map(str, prompt.shape))} prefill, kernels vs "
         "plain versions: last-position logits relative Frobenius error "
         f"{row['rel_fro']:.3e} (limit 5e-2; plain prefill "
-        f"{row['plain_prefill_s']:.1f} s)")
+        f"{row['plain_prefill_s']:.1f} s); each layer's output hidden state "
+        "apart by " + ", ".join(f"{i}: {by_layer[i]:.2e}" for i in shown)
+        + "; each layer's own error on the plain run's input " + ", ".join(
+            f"{i}: {own[i]:.2e}" for i in shown)
+        + f", at most {own[worst]:.3e} (layer {worst}; limit {tol:g})"
+        + (f"; layer 0 with a scan without D {row['scan_without_d_rel_fro']:.3e}"
+           if cfg.has_ssm else ""))
+    if own[worst] > tol:
+        fail(f"{cfg.name}: layer {worst}'s own error, kernels vs plain on "
+             f"the same input, {own[worst]:.3e} (limit {tol:g})")
+    if cfg.has_ssm and not row["scan_without_d_rel_fro"] > tol:
+        fail(f"{cfg.name}: a scan without D moves layer 0 by "
+             f"{row['scan_without_d_rel_fro']:.3e}, within the own-layer "
+             f"limit {tol:g}: the limit cannot see a scan fault")
     if cfg.has_moe:
         from repro_torch.models.moe import capacity
         rec_2 = _Routing()
@@ -971,7 +1114,8 @@ def _served(cfg, model, batch: int, prompt_len: int, steps: int,
     """The served run: a ``batch x prompt_len`` prefill then ``steps``
     greedy decode steps, every kernel's launch count zeroed just before;
     each attention layer launches flash and each Mamba layer the scan, all
-    in the prefill."""
+    in the prefill.  The row carries the bytes of the run's decode state:
+    the KV cache, and the conv tail with the SSM state."""
     from repro_torch.kernels import (coded_matmul, flash_attention,
                                      poly_encode, ssm_scan)
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
@@ -1025,6 +1169,8 @@ def _served(cfg, model, batch: int, prompt_len: int, steps: int,
            "decode_s": decode_s, "decode_ms_per_step": decode_s / steps * 1e3,
            "decode_tokens_per_s": batch * steps / decode_s,
            "peak_bytes": torch.cuda.max_memory_allocated(),
+           "kv_cache_bytes": _nbytes(state.kv_k, state.kv_v),
+           "ssm_state_bytes": _nbytes(state.conv, state.ssm_h),
            "launches": served, "logits_shape": list(want_shape),
            "first_generated": torch.cat(generated, 1)[0, :8].tolist()}
     log(f"{cfg.name} served ({' x '.join(map(str, prompt.shape))} prompt, "
@@ -1066,9 +1212,9 @@ def phase_full_lm(dev) -> tuple:
 
 def phase_lm_breakdown(model, prompt) -> dict:
     """Device time by kernel over one profiled full-width prefill of
-    ``prompt`` and over 4 decode steps after it, from ``torch.profiler``;
-    for an MoE model by kind too (:func:`_moe_device_split`); the decode's
-    launches and its top host rows."""
+    ``prompt`` and over 4 decode steps after it, from ``torch.profiler``,
+    and by kind (:func:`_device_split`); the decode's launches and its top
+    host rows."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
@@ -1087,9 +1233,7 @@ def phase_lm_breakdown(model, prompt) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     out["prefill"] = _device_rows(prof, wall_ms, f"breakdown ({cfg.name} "
                                   f"prefill {B}x{L}, profiled)")
-    if cfg.has_moe:
-        out["prefill"]["by_kind"] = _moe_device_split(prof, cfg,
-                                                      out["prefill"])
+    out["prefill"]["by_kind"] = _device_split(prof, cfg, out["prefill"])
     logits, state = decode(model, logits[:, -1].argmax(-1)[:, None],
                            state)                          # warm-up step
     torch.cuda.synchronize()
@@ -1102,9 +1246,7 @@ def phase_lm_breakdown(model, prompt) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     out["decode"] = _device_rows(prof, wall_ms, f"breakdown ({cfg.name} 4 "
                                  "decode steps after the prefill, profiled)")
-    if cfg.has_moe:
-        out["decode"]["by_kind"] = _moe_device_split(prof, cfg,
-                                                     out["decode"])
+    out["decode"]["by_kind"] = _device_split(prof, cfg, out["decode"])
     out["decode"]["launches"] = sum(
         e.count for e in prof.key_averages()
         if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
@@ -1156,27 +1298,44 @@ FAMILY_SMOKES = ("qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
 SMOKE_LOSS_TOL = 1e-5
 
 
-def _moe_bounds(cfg, B: int, L: int, weight_bytes: int,
-                kv_bytes: int) -> dict:
-    """Computed bounds of the qwen2-moe serve: the prefill's FLOP (the
-    projections, flash's 4·d per unmasked pair, the router, the active
-    routed experts and the shared ones) at the bf16 peak; a decode step's
-    bytes (every weight but the embedding table, and the KV cache) at the
-    memory rate."""
-    d, hd, T = cfg.d_model, cfg.resolved_head_dim, B * L
-    H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    proj = 2 * T * d * hd * (2 * H + 2 * Hkv)
-    flash = 4 * hd * B * H * L * (L + 1) // 2
-    f = cfg.d_ff_expert
-    experts = 2 * 3 * T * d * f * (cfg.experts_per_token
-                                   + cfg.n_shared_experts)
-    router = 2 * T * d * cfg.n_experts
-    flops = cfg.n_layers * (proj + flash + experts + router)
-    embed = cfg.padded_vocab() * d * 2
-    step_bytes = weight_bytes - embed + kv_bytes
+def _lm_bounds(cfg, B: int, L: int, weight_bytes: int,
+               state_bytes: int) -> dict:
+    """Computed bounds of a served LM: the prefill's FLOP at the bf16 peak
+    (the attention projections and flash's 4·d per unmasked pair; the
+    Mamba projections; the dense FFN, or the router with the active routed
+    experts and the shared ones; the last position's head left out), and a
+    decode step's bytes at the memory rate: every weight (an untied
+    embedding table but the rows a step gathers), and the decode state (KV
+    cache, conv and SSM state), each read once."""
+    from repro_torch.models.lm import layer_windows
+    d, T = cfg.d_model, B * L
+    per_layer = 0
+    if cfg.has_attention:
+        hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+        per_layer += 2 * T * d * hd * (2 * H + 2 * Hkv)
+    if cfg.has_ssm:
+        di, r, S = cfg.resolved_d_inner, cfg.resolved_dt_rank, cfg.ssm_state
+        per_layer += 2 * T * (d * 2 * di + di * (r + 2 * S) + r * di + di * d)
+    if cfg.has_moe:
+        f = cfg.d_ff_expert
+        per_layer += 2 * 3 * T * d * f * (cfg.experts_per_token
+                                          + cfg.n_shared_experts)
+        per_layer += 2 * T * d * cfg.n_experts
+    elif cfg.d_ff:
+        per_layer += 2 * T * d * cfg.d_ff * (2 if cfg.mlp_act == "gelu" else 3)
+    flash = 0
+    if cfg.has_attention:
+        windows = layer_windows(cfg)
+        pairs = {w: _flash_pairs(L, L, 0, w) for w in set(windows)}
+        flash = sum(4 * cfg.resolved_head_dim * B * cfg.n_heads * pairs[w]
+                    for w in windows)
+    flops = cfg.n_layers * per_layer + flash
+    embed = 0 if cfg.tie_embeddings else \
+        max(1, cfg.n_codebooks) * cfg.padded_vocab() * d * 2
+    step_bytes = weight_bytes - embed + state_bytes
     return {"prefill_flops": flops,
             "prefill_flop_bound_s": flops / PEAK_FLOPS["bfloat16"],
-            "flash_flops": cfg.n_layers * flash,
+            "flash_flops": flash,
             "decode_step_bytes": step_bytes,
             "decode_byte_bound_ms": step_bytes / PEAK_BYTES * 1e3}
 
@@ -1185,6 +1344,8 @@ def _kind(kernel: str) -> str:
     n = kernel.lower()
     if "flash" in n:
         return "flash"
+    if "ssm_scan" in n:
+        return "scan"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "cutlass", "xmma",
                             "cublas")):
         return "other_gemm"
@@ -1194,24 +1355,25 @@ def _kind(kernel: str) -> str:
     return "elementwise_other"
 
 
-def _moe_device_split(prof, cfg, rows: dict) -> dict:
+def _device_split(prof, cfg, rows: dict) -> dict:
     """Device ms of a profiled run by kind, each kernel counted once by its
-    own device time: the expert products (the kernels launched by an
-    ``aten::bmm`` on the (E, d, f) or (E, f, d) expert weights, moved out
-    of the kind their name gives), the other GEMMs and GEMVs (cuBLAS's
-    ``nvjet`` kernels among them), flash, dispatch and scatter (index /
-    scatter / gather / sort / search / bincount kernels) and the rest
-    (elementwise and copies).  Fails unless every kind is non-negative,
-    the expert products were found, and the kinds sum to the run's busy
-    time (:func:`_device_rows`)."""
+    own device time: for an MoE model the expert products (the kernels
+    launched by an ``aten::bmm`` on the (E, d, f) or (E, f, d) expert
+    weights, moved out of the kind their name gives), the other GEMMs and
+    GEMVs (cuBLAS's ``nvjet`` kernels among them), flash, the scan,
+    dispatch and scatter (index / scatter / gather / sort / search /
+    bincount kernels) and the rest (elementwise and copies).  Fails unless
+    every kind is non-negative, an MoE model's expert products were found,
+    and the kinds sum to the run's busy time (:func:`_device_rows`)."""
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
-    out = dict.fromkeys(("expert_products", "other_gemm", "flash",
+    out = dict.fromkeys(("expert_products", "other_gemm", "flash", "scan",
                          "dispatch_scatter", "elementwise_other"), 0.0)
     for e in prof.events():
         if str(e.device_type).endswith("CUDA"):
             if e.self_device_time_total > 0:
                 out[_kind(e.name)] += e.self_device_time_total / 1e3
-        elif e.name == "aten::bmm" and len(e.input_shapes) > 1 and \
+        elif cfg.has_moe and e.name == "aten::bmm" and \
+                len(e.input_shapes) > 1 and \
                 list(e.input_shapes[1]) in ([E, d, f], [E, f, d]):
             for k in e.kernels:
                 out[_kind(k.name)] -= k.duration / 1e3
@@ -1219,8 +1381,8 @@ def _moe_device_split(prof, cfg, rows: dict) -> dict:
     total = sum(out.values())
     log("  by kind: " + ", ".join(f"{k} {v:.2f} ms" for k, v in out.items())
         + f" (sum {total:.2f} ms)")
-    if min(out.values()) < 0 or out["expert_products"] <= 0 or \
-            abs(total - rows.get("busy_ms", 0.0)) > 1e-6 * total:
+    if min(out.values()) < 0 or (cfg.has_moe and out["expert_products"] <= 0) \
+            or abs(total - rows.get("busy_ms", 0.0)) > 1e-6 * total:
         fail(f"{cfg.name} device time by kind {out} does not split the busy "
              f"time {rows.get('busy_ms')} ms")
     return out
@@ -1230,13 +1392,17 @@ def _flash_served(dev, gen, ptxas: dict, arch: str, B: int, L: int) -> dict:
     """Flash at ``arch``'s served prefill (B x H/Hkv x L x head dim, full
     causal, bf16): checked against the plain version per batch row
     (elementwise and per block of FLASH_ROWS query rows), timed beside SDPA
-    and the bound; the ``flash_mma_kernel<head dim>`` instance's registers
-    and spills."""
+    and the bound (of the true head dim's work); the registers and spills
+    of the ``flash_mma_kernel`` instance it runs in (the next built head
+    dim up for a dim without one)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (head_dims,
+                                                         instance_dim)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     cfg = get_arch(arch)
     H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    D = instance_dim(d, head_dims())
     q, k, v = (torch.randn(B, n, L, d, device=dev, generator=gen)
                .to(torch.bfloat16) for n in (H, Hkv, Hkv))
     got = flash_attention(q, k, v)
@@ -1254,9 +1420,9 @@ def _flash_served(dev, gen, ptxas: dict, arch: str, B: int, L: int) -> dict:
     flops = 4.0 * d * pairs
     nbytes = 2 * (2 * B * H * L * d + 2 * B * Hkv * L * d)
     b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
-    inst = {n: r for n, r in ptxas.items() if f"flash_mma_kernelILi{d}E" in n}
+    inst = {n: r for n, r in ptxas.items() if f"flash_mma_kernelILi{D}E" in n}
     if not inst:
-        fail(f"ptxas report shows no flash_mma_kernel<{d}>")
+        fail(f"ptxas report shows no flash_mma_kernel<{D}>")
     row = {"arch": cfg.name, "shape": [B, H, Hkv, L, d], "dtype": "bfloat16",
            "window": 0, "max_abs_err": err, "rel_fro": fro,
            "rows_rel_fro": rows, "unmasked_pairs": pairs, "flops": flops,
@@ -1265,7 +1431,8 @@ def _flash_served(dev, gen, ptxas: dict, arch: str, B: int, L: int) -> dict:
            "plain_ms": time_ms(lambda: [attention_ref(
                q[b:b + 1], k[b:b + 1], v[b:b + 1]) for b in range(B)], 1),
            "library_ms": time_ms(lib), "library_rel_fro": rel_fro(got, lib()),
-           "bound_ms": b_ms, "bound_by": b_by, "ptxas": inst}
+           "bound_ms": b_ms, "bound_by": b_by, "instance_head_dim": D,
+           "ptxas": inst}
     row["tflops"] = flops / row["ms"] / 1e9
     spills = any(r.get("spill_stores") or r.get("spill_loads")
                  for r in inst.values())
@@ -1276,7 +1443,8 @@ def _flash_served(dev, gen, ptxas: dict, arch: str, B: int, L: int) -> dict:
         f"{cfg.n_layers} layers {row['flops_all_layers'] / 1e12:.1f} TFLOP); "
         f"vs plain: max abs err {err:.3e}, rel. Frobenius {fro:.3e}, worst "
         f"block of {FLASH_ROWS} rows {rows:.3e}; rel. Frobenius vs SDPA "
-        f"{row['library_rel_fro']:.2e}; flash_mma_kernel<{d}> "
+        f"{row['library_rel_fro']:.2e}; flash_mma_kernel<{D}>"
+        + (f" (head dim {d} zero-padded to {D}) " if D != d else " ")
         + "; ".join(f"{r.get('registers')} registers, {r.get('spill_stores')}"
                     f" B spill stores, {r.get('spill_loads')} B spill loads"
                     for r in inst.values())
@@ -1286,60 +1454,53 @@ def _flash_served(dev, gen, ptxas: dict, arch: str, B: int, L: int) -> dict:
     return row
 
 
-def _moe_full(dev) -> dict:
-    """qwen2-moe-a2.7b at full width and depth, bf16, weights from a
-    seed: kernels vs plain on a 1 x 2048 prompt (with the routing
-    witness), the served 4 x 8192 + 32 run, and a profiled prefill and
+def _nbytes(*tensors) -> int:
+    """Bytes of the tensors among ``tensors`` (a state field of an absent
+    kind is ``()``)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def _lm_full(dev, name: str, seed: int, batch: int = LM_BATCH,
+             prompt_len: int = LM_PROMPT, steps: int = LM_DECODE,
+             profile: bool = True) -> dict:
+    """``name`` at full width and depth, bf16, weights from a seed: kernels
+    vs plain on a 1 x 2048 prompt (for MoE with the routing witness; for
+    audio of codebook tokens), the served ``batch x prompt_len + steps``
+    run, the computed bounds, and with ``profile`` a profiled prefill and
     decode."""
-    cfg, model, n, nbytes, draw_s = _lm_model(MOE_ARCH, dev, 14)
+    cfg, model, n, nbytes, draw_s = _lm_model(name, dev, seed)
     tok_gen = torch.Generator(device=dev)
-    tok_gen.manual_seed(15)
-    prompt = torch.randint(0, cfg.vocab_size, (1, 2048), device=dev,
+    tok_gen.manual_seed(seed + 1)
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    prompt = torch.randint(0, cfg.vocab_size, (1, 2048) + cb, device=dev,
                            generator=tok_gen)
     check = _kernels_vs_plain(cfg, model, prompt)
     del prompt
-    row, prompt = _served(cfg, model, LM_BATCH, LM_PROMPT, LM_DECODE,
-                          tok_gen)
-    kv_bytes = 2 * cfg.n_layers * LM_BATCH * cfg.n_kv_heads * (
-        LM_PROMPT + LM_DECODE) * cfg.resolved_head_dim * 2
+    row, prompt = _served(cfg, model, batch, prompt_len, steps, tok_gen)
+    kv_bytes, state_bytes = row["kv_cache_bytes"], row["ssm_state_bytes"]
     row.update(params=n, weight_bytes=nbytes, draw_s=draw_s,
-               kv_cache_bytes=kv_bytes, kernels_vs_plain=check,
-               **_moe_bounds(cfg, LM_BATCH, LM_PROMPT, nbytes, kv_bytes))
+               kernels_vs_plain=check,
+               **_lm_bounds(cfg, batch, prompt_len, nbytes,
+                            kv_bytes + state_bytes))
     log(f"  bounds: prefill {row['prefill_flop_bound_s']:.3f} s (FLOP), "
         f"decode step {row['decode_byte_bound_ms']:.2f} ms (bytes); weights "
-        f"{nbytes / 2**30:.2f} GiB, KV cache {kv_bytes / 2**30:.2f} GiB; "
-        f"{100 * row['dropped_share']:.3f} % of routed assignments dropped "
-        f"at C = {row['capacity']} (layer 0: "
-        f"{100 * row['dropped_by_layer'][0]:.3f} %, layer "
-        f"{cfg.n_layers - 1}: {100 * row['dropped_by_layer'][-1]:.3f} %)")
-    row["profile"] = phase_lm_breakdown(model, prompt)
+        f"{nbytes / 2**30:.2f} GiB, KV cache {kv_bytes / 2**30:.2f} GiB, "
+        f"conv and SSM state {state_bytes / 2**30:.3f} GiB"
+        + (f"; {100 * row['dropped_share']:.3f} % of routed assignments "
+           f"dropped at C = {row['capacity']} (layer 0: "
+           f"{100 * row['dropped_by_layer'][0]:.3f} %, layer "
+           f"{cfg.n_layers - 1}: {100 * row['dropped_by_layer'][-1]:.3f} %)"
+           if cfg.has_moe else ""))
+    if profile:
+        row["profile"] = phase_lm_breakdown(model, prompt)
     del model, prompt
     torch.cuda.empty_cache()
     return row
 
 
-def _audio_full(dev) -> dict:
-    """musicgen-large at full width and depth, bf16, weights from a seed:
-    kernels vs plain on a 1 x 2048 prompt, then a 4 x 2048 prompt and 16
-    greedy decode steps of (B, 1, 4) codebook tokens."""
-    cfg, model, n, nbytes, draw_s = _lm_model(AUDIO_ARCH, dev, 16)
-    tok_gen = torch.Generator(device=dev)
-    tok_gen.manual_seed(17)
-    prompt = torch.randint(0, cfg.vocab_size, (1, 2048, cfg.n_codebooks),
-                           device=dev, generator=tok_gen)
-    check = _kernels_vs_plain(cfg, model, prompt)
-    del prompt
-    row, prompt = _served(cfg, model, AUDIO_BATCH, AUDIO_PROMPT,
-                          AUDIO_DECODE, tok_gen)
-    row.update(params=n, weight_bytes=nbytes, draw_s=draw_s,
-               kernels_vs_plain=check)
-    del model, prompt
-    torch.cuda.empty_cache()
-    return row
-
-
-def _families_small() -> dict:
-    """The four families' smoke configs in float32 card against CPU
+def _families_small(names) -> dict:
+    """The smoke configs of ``names`` in float32 card against CPU
     (:func:`_smoke_card_vs_cpu`), then on the same weights lm_loss (llava
     with vision embeddings, the MoE configs with their load-balance term)
     to SMOKE_LOSS_TOL relative and SMALL_TRAIN_STEPS train steps (loss and
@@ -1352,7 +1513,7 @@ def _families_small() -> dict:
     from repro_torch.optim import adamw_init
     from repro_torch.runtime.steps import make_train_step
     out = {}
-    for name in FAMILY_SMOKES:
+    for name in names:
         cfg, models, row = _smoke_card_vs_cpu(name)
         batch = SyntheticTokens(
             vocab_size=cfg.vocab_size, seq_len=32, global_batch=2, seed=2,
@@ -1406,10 +1567,61 @@ def phase_families(dev, gen, ptxas: dict) -> dict:
                                             LM_BATCH, LM_PROMPT),
            "flash_musicgen": _flash_served(dev, gen, ptxas, AUDIO_ARCH,
                                            AUDIO_BATCH, AUDIO_PROMPT),
-           "qwen2_moe": _moe_full(dev), "musicgen": _audio_full(dev),
-           "smoke": _families_small()}
+           "qwen2_moe": _lm_full(dev, MOE_ARCH, 14),
+           "musicgen": _lm_full(dev, AUDIO_ARCH, 16, AUDIO_BATCH,
+                                AUDIO_PROMPT, AUDIO_DECODE, profile=False),
+           "smoke": _families_small(FAMILY_SMOKES)}
     out["seconds"] = time.perf_counter() - t0
     log(f"MoE, vlm and audio phase: {out['seconds']:.1f} s ({CARD})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9c: the dense, ssm and vlm architectures at full width and depth.
+# Five served with hymba's cut (4 x 8192 prompt, 32 greedy decode steps);
+# qwen1.5-32b (65.6 GiB of bf16 weights) with 1 x 2048 and 16, last, on a
+# card that holds nothing else.  llava-next-mistral-7b prefills its text
+# stream, as the reference's serving step does.
+DENSE_ARCHS = ("gemma-2b", "qwen2.5-3b", "minicpm-2b", "falcon-mamba-7b",
+               "llava-next-mistral-7b")
+DENSE_PROFILED = ("falcon-mamba-7b", "llava-next-mistral-7b")
+BIG_ARCH, BIG_BATCH, BIG_PROMPT, BIG_DECODE = "qwen1.5-32b", 1, 2048, 16
+# flash at the new served prefills (arch, B, L), full causal, and at
+# kimi-k2's heads (head dim 112, run zero-padded in the <128> instance)
+DENSE_FLASH = (("gemma-2b", LM_BATCH, LM_PROMPT),
+               ("qwen2.5-3b", LM_BATCH, LM_PROMPT),
+               ("minicpm-2b", LM_BATCH, LM_PROMPT),
+               ("llava-next-mistral-7b", LM_BATCH, LM_PROMPT),
+               ("qwen1.5-32b", BIG_BATCH, BIG_PROMPT),
+               ("kimi-k2-1t-a32b", 2, 4096))
+# the dense and ssm smoke configs, card vs CPU (minicpm-smoke's head dim is
+# 18: float32 flash zero-padded to its 32 instance)
+DENSE_SMOKES = ("gemma-2b", "qwen2.5-3b", "minicpm-2b", "falcon-mamba-7b",
+                "qwen1.5-32b")
+
+
+def phase_dense(dev, gen, ptxas: dict) -> dict:
+    """Phase 9c: flash at the dense models' served prefills and kimi-k2's
+    head dim, the dense and ssm smoke configs card vs CPU, then each
+    architecture of DENSE_ARCHS and BIG_ARCH at full width
+    (:func:`_lm_full`), the free memory printed before BIG_ARCH's draw."""
+    t0 = time.perf_counter()
+    out = {f"flash_{a}": _flash_served(dev, gen, ptxas, a, B, L)
+           for a, B, L in DENSE_FLASH}
+    out["smoke"] = _families_small(DENSE_SMOKES)
+    for i, name in enumerate(DENSE_ARCHS):
+        out[name] = _lm_full(dev, name, 18 + 2 * i,
+                             profile=name in DENSE_PROFILED)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    out["free_before_" + BIG_ARCH] = free
+    log(f"before {BIG_ARCH}'s draw: {free / 2**30:.2f} GiB free of "
+        f"{total / 2**30:.2f} GiB, {torch.cuda.memory_allocated() / 2**30:.2f}"
+        " GiB allocated by this process")
+    out[BIG_ARCH] = _lm_full(dev, BIG_ARCH, 30, BIG_BATCH, BIG_PROMPT,
+                             BIG_DECODE, profile=False)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"dense, ssm and vlm phase: {out['seconds']:.1f} s ({CARD})")
     return out
 
 
@@ -3063,6 +3275,7 @@ def main(argv=None) -> int:
     drawer, paper_ops = start_paper_operands()
     t0 = time.perf_counter()
     ptxas = phase_build()
+    check_flash_instances(ptxas)
     drawer.join()
     log(f"build and operand drawing (8 pairs of 2048x32768, in a thread "
         f"meanwhile): {time.perf_counter() - t0:.1f} s")
@@ -3080,6 +3293,7 @@ def main(argv=None) -> int:
     del model, prompt
     torch.cuda.empty_cache()
     families = phase_families(dev, gen, ptxas)
+    dense = phase_dense(dev, gen, ptxas)
     t_new = time.perf_counter()
     sim_twin = start_autotune_sim()
     try:
@@ -3150,7 +3364,12 @@ def main(argv=None) -> int:
                   "qwen2_moe_served": families["qwen2_moe"]["launches"][
                       "flash_attention"],
                   "musicgen_served": families["musicgen"]["launches"][
-                      "flash_attention"]}
+                      "flash_attention"],
+                  **{f"{a}_served": dense[a]["launches"]["flash_attention"]
+                     for a in DENSE_ARCHS + (BIG_ARCH,)}}
+    scan_runs = {"hymba_served": lm["launches"]["ssm_scan"],
+                 **{f"{a}_served": dense[a]["launches"]["ssm_scan"]
+                    for a in DENSE_ARCHS + (BIG_ARCH,)}}
     kernels += [
         {"name": "flash_attention", "status": "ported", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -3164,8 +3383,8 @@ def main(argv=None) -> int:
         {"name": "ssm_scan", "status": "ported", "route": "cuda",
          "source": "src/repro_torch/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan/kernel.py:55",
-         "launches": lm["launches"]["ssm_scan"],
-         "launches_by_run": {"hymba_served": lm["launches"]["ssm_scan"]},
+         "launches": sum(scan_runs.values()),
+         "launches_by_run": scan_runs,
          "shape": scan["shape"], "max_abs_err": scan["max_abs_err"],
          "ms": scan["ms"], "plain_ms": scan["plain_ms"],
          "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
@@ -3179,7 +3398,7 @@ def main(argv=None) -> int:
              "small_serve": small, "serve": runs, "breakdown": breakdown,
              "flash_attention": flash, "ssm_scan": scan,
              "small_lm": small_lm, "lm": lm, "lm_breakdown": lm_breakdown,
-             "families": families,
+             "families": families, "dense": dense,
              "open_loop": open_loop, "autotune": autotune,
              "engine": engine, "cluster": cluster,
              "coded_runtime": coded_runtime, "kernels": kernels},

@@ -634,33 +634,34 @@ FLASH_LAUNCH(SimtLaunch, launch_simt)
 FLASH_LAUNCH(MmaLaunch, launch_mma)
 #undef FLASH_LAUNCH
 
-template <template <int> class L>
+// The head dims the kernels are instantiated for, ascending: the one list
+// of them, which flash_attention_head_dims reports to the wrapper (it pads
+// every other head dim up to the next of these).
+#define FLASH_HEAD_DIMS 16, 32, 64, 128, 256
+
+template <template <int> class L, int D0, int... Ds>
 int by_head_dim(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int Hkv, int Lq, int Lkv, int D, int causal, int window,
                 int q_offset, float scale, const long long* st, void* stream) {
     if (Hkv < 1 || H % Hkv) return UNSUPPORTED;
-    switch (D) {
-        case 16: return L<16>::run(q, k, v, o, B, H, Hkv, Lq, Lkv, causal,
-                                   window, q_offset, scale, st, stream);
-        case 32: return L<32>::run(q, k, v, o, B, H, Hkv, Lq, Lkv, causal,
-                                   window, q_offset, scale, st, stream);
-        case 64: return L<64>::run(q, k, v, o, B, H, Hkv, Lq, Lkv, causal,
-                                   window, q_offset, scale, st, stream);
-        case 128: return L<128>::run(q, k, v, o, B, H, Hkv, Lq, Lkv, causal,
-                                     window, q_offset, scale, st, stream);
-        case 256: return L<256>::run(q, k, v, o, B, H, Hkv, Lq, Lkv, causal,
-                                     window, q_offset, scale, st, stream);
-        default: return UNSUPPORTED;
-    }
+    if (D == D0)
+        return L<D0>::run(q, k, v, o, B, H, Hkv, Lq, Lkv, causal, window,
+                          q_offset, scale, st, stream);
+    if constexpr (sizeof...(Ds) > 0)
+        return by_head_dim<L, Ds...>(q, k, v, o, B, H, Hkv, Lq, Lkv, D,
+                                     causal, window, q_offset, scale, st,
+                                     stream);
+    return UNSUPPORTED;
 }
 
 }  // namespace
 
 // q (B, H, Lq, D), k and v (B, Hkv, Lkv, D), o like q; the strides are
 // (batch, head, position) of q, k, v and o in turn, in elements.  Returns
-// UNSUPPORTED, launching nothing, unless D is 16, 32, 64, 128 or 256 and
-// Hkv divides H; float32 also needs the query group to fit a block
-// (group * max(1, D / 32) <= 256) and B, Hkv <= 65535; bf16 needs
+// UNSUPPORTED, launching nothing, unless D is one of FLASH_HEAD_DIMS and
+// Hkv divides H (the wrapper runs any other head dim up to the largest in
+// the next one up, zero-padded, with the true dim's scale); float32 also
+// needs the query group to fit a block (group * max(1, D / 32) <= 256) and B, Hkv <= 65535; bf16 needs
 // ceil(Lq / BQ) <= 65535, 16-byte aligned pointers and strides that are
 // multiples of 8 elements.
 #define FLASH_ENTRY(NAME, LAUNCH)                                             \
@@ -674,12 +675,22 @@ int by_head_dim(const void* q, const void* k, const void* v, void* o, int B,
                         void* stream) {                                       \
         const long long st[12] = {sqb, sqh, sql, skb, skh, skl,               \
                                   svb, svh, svl, sob, soh, sol};              \
-        return by_head_dim<LAUNCH>(q, k, v, o, B, H, Hkv, Lq, Lkv, D, causal, \
-                                   window, q_offset, scale, st, stream);      \
+        return by_head_dim<LAUNCH, FLASH_HEAD_DIMS>(                          \
+            q, k, v, o, B, H, Hkv, Lq, Lkv, D, causal, window, q_offset,       \
+            scale, st, stream);                                                \
     }
 
 FLASH_ENTRY(flash_attention_f32, SimtLaunch)
 FLASH_ENTRY(flash_attention_bf16, MmaLaunch)
+
+// Writes up to n of the instantiated head dims, ascending, to dims;
+// returns how many there are.
+extern "C" int flash_attention_head_dims(int* dims, int n) {
+    constexpr int built[] = {FLASH_HEAD_DIMS};
+    constexpr int count = sizeof(built) / sizeof(built[0]);
+    for (int i = 0; i < count && i < n; ++i) dims[i] = built[i];
+    return count;
+}
 
 extern "C" const char* repro_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);

@@ -49,8 +49,10 @@ SIGNATURES = {
     # q, k, v, o; B, H, Hkv, Lq, Lkv, D, causal, window, q_offset; scale;
     # (batch, head, position) strides of q, k, v, o; stream
     "flash_attention": {
-        name: ([_P] * 4 + [_I] * 9 + [_F] + [_LL] * 12 + [_P], _I)
-        for name in ("flash_attention_f32", "flash_attention_bf16")
+        **{name: ([_P] * 4 + [_I] * 9 + [_F] + [_LL] * 12 + [_P], _I)
+           for name in ("flash_attention_f32", "flash_attention_bf16")},
+        # the instantiated head dims: (out array, its length) -> their count
+        "flash_attention_head_dims": ([_P, _I], _I),
     },
     # x, dt, A, B, C, D, y, h_final; Bt, L, Dm, S; (batch, time) strides of
     # x, dt, B, C; stream

@@ -12,15 +12,26 @@ window leave.  Its source note gives the bound on the card and the designs.
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel or raises — there is no fallback.  :func:`flash_attention`
 counts its launches in ``flash_attention.launches``.
+
+The kernels are instantiated for the head dims that the source lists
+(``FLASH_HEAD_DIMS``: 16, 32, 64, 128 and 256), which the library reports
+(:func:`head_dims`); the reference's kernel takes any.  A head dim between
+them (minicpm-smoke's 18, kimi-k2's 112) runs the next instance up on
+operands zero-padded along the head dim, with the true dim's scale
+(:func:`run_padded`): the zero columns add nothing to q·k, and the output
+columns they give are dropped.  A head dim above the largest raises
+``ValueError``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .._build import check, load, refuse_autograd
 from .ref import attention_ref
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "head_dims", "instance_dim", "run_padded"]
 
 _KERNEL_DTYPES = {torch.float32: "flash_attention_f32",
                   torch.bfloat16: "flash_attention_bf16"}
@@ -38,6 +49,45 @@ def _rows_16b(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in _strides(t))
 
 
+def head_dims() -> tuple[int, ...]:
+    """The head dims the kernels are instantiated for, ascending, as the
+    built library reports them (builds it on first use)."""
+    lib = load("flash_attention")
+    buf = (ctypes.c_int * 64)()
+    n = lib.flash_attention_head_dims(buf, len(buf))
+    return tuple(buf[:min(n, len(buf))])
+
+
+def instance_dim(d: int, dims) -> int:
+    """The smallest head dim of ``dims`` (ascending) that is >= ``d``."""
+    for D in dims:
+        if d <= D:
+            return D
+    raise ValueError(f"flash_attention: head dim {d} is above "
+                     f"{dims[-1]}, the largest the kernel is built for")
+
+
+def run_padded(kernel, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               dims, **kw) -> torch.Tensor:
+    """``kernel(q, k, v, scale=1/sqrt(d), **kw)`` at the instance's head
+    dim: q, k and v zero-padded along their last dim d to
+    ``instance_dim(d, dims)`` (fresh contiguous tensors), the output's
+    first d columns returned.  At a built head dim the operands go in as
+    they are."""
+    d = q.shape[-1]
+    D = instance_dim(d, dims)
+    if D != d:
+        q, k, v = (_zero_pad(t, D) for t in (q, k, v))
+    out = kernel(q, k, v, scale=1.0 / d ** 0.5, **kw)
+    return out if D == d else out[..., :d]
+
+
+def _zero_pad(t: torch.Tensor, D: int) -> torch.Tensor:
+    out = t.new_zeros(t.shape[:-1] + (D,))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_offset: int = 0) -> torch.Tensor:
@@ -50,14 +100,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     contiguous (the model's ``(B, L, H, d)`` → ``(B, H, L, d)`` views go in
     as they are); the output takes q's layout.  In bf16 each row must also
     start on 16 bytes (pointer 16-byte aligned, strides multiples of 8
-    elements); an operand whose rows do not is copied once.
+    elements); an operand whose rows do not is copied once.  A head dim
+    without an instance is padded (:func:`run_padded`), and the output is
+    then a view of the padded one's first d columns.
     """
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"need q (B, H, Lq, d) and k, v (B, Hkv, Lkv, d); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, Lq, d = q.shape
-    Hkv, Lkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[1]
     if k.shape[0] != B or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          "in batch or head dim")
@@ -77,8 +129,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"the flash_attention kernel takes float32 or "
                         f"bfloat16 q, k, v of one dtype; got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    # the head dims, query groups and grid sizes the kernel takes are known
-    # to its launcher alone, which raises through ``check``
+    return run_padded(_launch, q, k, v, head_dims(), causal=causal,
+                      window=window, q_offset=q_offset)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            scale: float, causal: bool, window: int,
+            q_offset: int) -> torch.Tensor:
+    """One launch of the dtype's kernel at a built head dim."""
+    B, H, Lq, d = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    # the query groups and grid sizes the kernel takes are known to its
+    # launcher alone, which raises through ``check``
     # the kernels read rows along the contiguous last dim, the bf16 one
     # with 16-byte copies; any other layout is copied once here
     q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
@@ -95,7 +157,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, H, Hkv, Lq, Lkv, d, int(bool(causal)), window, q_offset,
-                1.0 / d ** 0.5, *_strides(q), *_strides(k), *_strides(v),
+                scale, *_strides(q), *_strides(k), *_strides(v),
                 *_strides(out), stream)
     check(lib, rc, f"flash_attention (B={B}, H={H}, Hkv={Hkv}, head dim "
                    f"{d})")

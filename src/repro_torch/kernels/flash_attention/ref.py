@@ -10,18 +10,21 @@ __all__ = ["attention_ref"]
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
-                  q_offset: int = 0) -> torch.Tensor:
+                  q_offset: int = 0,
+                  scale: float | None = None) -> torch.Tensor:
     """q (B, H, Lq, d), k/v (B, Hkv, Lkv, d) → (B, H, Lq, d) in q's dtype.
 
     Query i sits at absolute position ``q_offset + i``; ``window`` keeps
     keys with ``qpos - kpos < window``.  Rows with no unmasked key give 0.
+    Scores are scaled by ``scale`` (default ``1 / sqrt(d)``).
     """
     B, H, Lq, d = q.shape
     Hkv, Lkv = k.shape[1], k.shape[2]
     group = H // Hkv
     kk = k.repeat_interleave(group, dim=1).float()
     vv = v.repeat_interleave(group, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / (d ** 0.5)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * (
+        d ** -0.5 if scale is None else scale)
     qpos = q_offset + torch.arange(Lq, device=q.device)[:, None]
     kpos = torch.arange(Lkv, device=q.device)[None, :]
     mask = torch.ones((Lq, Lkv), dtype=torch.bool, device=q.device)

@@ -42,7 +42,9 @@ FLASH_SHAPES = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 64, 64, 32),
                 (1, 8, 1, 32, 32, 16), (1, 2, 1, 16, 80, 16),
                 (1, 2, 2, 50, 70, 16),
                 (1, 25, 5, 300, 300, 64),       # hymba's heads
-                (2, 4, 1, 70, 70, 128), (1, 8, 1, 40, 40, 256)]
+                (2, 4, 1, 70, 70, 128), (1, 8, 1, 40, 40, 256),
+                # head dims without an instance, run padded to the next
+                (1, 4, 2, 40, 60, 18), (2, 16, 2, 70, 90, 112)]
 # float32 3xTF32 tile edges (W, M, Z, N): M and N off the 128 tile, Z off
 # the 32 k-step and the 8 of an mma, Z < 8, Z % 4 != 0 (the 4-byte copies)
 # and Z % 4 == 0 (the 16-byte copies)
@@ -52,7 +54,7 @@ MATMUL_EDGES = [(2, 1, 1, 1), (1, 3, 5, 7), (2, 64, 4, 64), (3, 129, 4, 131),
 # bf16 flash tile edges (Lq, Lkv): off the 128 / 64 query tiles and the 64
 # (32 at d = 256) key tiles
 FLASH_EDGES = [(1, 1), (7, 130), (65, 64), (129, 129), (200, 333), (300, 97)]
-FLASH_DIMS = [16, 32, 64, 128, 256]
+FLASH_DIMS = [16, 18, 32, 64, 112, 128, 256]
 # (Bt, L, Dm, S): the reference's sweep and odd state sizes, then the
 # kernel's edges: L = 1, L a multiple of its 32-step chunk (the unrolled
 # path) and off it, Dm off its 128-channel block with rows of 16 bytes
@@ -219,6 +221,25 @@ def test_flash_kernel_windows_and_noncausal(cuda, window, causal, dtype):
     got = flash_attention(q, k, v, causal=causal, window=window, q_offset=30)
     _assert_close(got, attention_ref(q, k, v, causal=causal, window=window,
                                      q_offset=30), TOL[dtype], TOL[dtype])
+
+
+def test_flash_library_reports_its_head_dims(cuda):
+    """The library reports the head dims its source instantiates, and each
+    of them runs unpadded: the kernel gets q itself, not a padded copy."""
+    from repro_torch.kernels.flash_attention import ops
+    dims = ops.head_dims()
+    assert dims == (16, 32, 64, 128, 256)
+    for d in dims:
+        q = _randn((1, 2, 40, d), "bfloat16", cuda, 18)
+        seen = []
+
+        def kernel(q_, k_, v_, **kw):
+            seen.append(q_.data_ptr())
+            return ops._launch(q_, k_, v_, **kw)
+        got = ops.run_padded(kernel, q, q, q, dims, causal=True, window=0,
+                             q_offset=0)
+        assert seen == [q.data_ptr()]
+        _assert_close(got, attention_ref(q, q, q), 5e-2, 5e-2)
 
 
 def test_flash_kernel_takes_model_views(cuda):
@@ -471,8 +492,8 @@ def test_lm_wrappers_reject_bad_dtype(cuda):
     q = torch.zeros(1, 2, 8, 16, dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError):
         flash_attention(q, q, q)
-    with pytest.raises(ValueError):
-        flash_attention(*(torch.zeros(1, 2, 8, 48, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="head dim 300"):   # above 256
+        flash_attention(*(torch.zeros(1, 2, 8, 300, device=cuda),) * 3)
     kv = torch.zeros(1, 1, 8, 128, device=cuda)
     with pytest.raises(ValueError):              # 128 heads x 4 lanes > 256
         flash_attention(torch.zeros(1, 128, 8, 128, device=cuda), kv, kv)

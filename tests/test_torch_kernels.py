@@ -37,6 +37,7 @@ from repro_torch.kernels.coded_matmul.ref import \
     coded_matmul_ref as plain_coded_matmul
 from repro_torch.kernels.coded_matmul.ref import (coded_matmul_3xtf32_ref,
                                                   tf32_round)
+from repro_torch.kernels.flash_attention.ops import instance_dim, run_padded
 from repro_torch.kernels.flash_attention.ref import \
     attention_ref as plain_attention
 from repro_torch.kernels.poly_encode.ref import \
@@ -399,6 +400,48 @@ def test_flash_rejects_bad_arguments(bad):
             flash_attention(q, k, k, q_offset=-2)
         else:
             flash_attention(q[0], k, k)
+
+
+# the head dims csrc/flash_attention.cu instantiates (FLASH_HEAD_DIMS; on
+# the card the wrapper reads them from the library, and
+# tests/test_torch_gpu.py holds the library to this list)
+BUILT_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+@pytest.mark.parametrize("d", [18, 112])
+def test_flash_padded_head_dim_matches_unpadded(d):
+    """A head dim without a kernel instance runs the next one up on
+    zero-padded operands with the true dim's scale (``run_padded``): with
+    the plain version standing in for the kernel, the padded run equals
+    the unpadded one, under GQA, a window and a query offset."""
+    (_, tq), (_, tk), (_, tv) = _qkv_inputs(2, 8, 2, 37, 53, d, "float32",
+                                            12)
+    D = instance_dim(d, BUILT_HEAD_DIMS)
+    seen = []
+
+    def kernel(q, k, v, **kw):
+        seen.append(tuple(q.shape))
+        for t in (q, k, v):
+            assert t.is_contiguous() and not t[..., d:].any()
+        return plain_attention(q, k, v, **kw)
+
+    for causal, window in ((True, None), (True, 16), (False, 24)):
+        kw = {"causal": causal, "window": window, "q_offset": 16}
+        got = run_padded(kernel, tq, tk, tv, BUILT_HEAD_DIMS, **kw)
+        assert got.shape == (2, 8, 37, d)
+        torch.testing.assert_close(got, plain_attention(tq, tk, tv, **kw),
+                                   rtol=1e-6, atol=1e-6)
+    assert seen == [(2, 8, 37, D)] * 3
+
+
+def test_flash_instance_dims():
+    """Each head dim up to 256 maps to the smallest built instance that
+    holds it; a built dim maps to itself; above 256 raises, naming it."""
+    assert [instance_dim(d, BUILT_HEAD_DIMS)
+            for d in (1, 16, 18, 33, 64, 72, 112, 128, 200, 256)] == [
+                16, 16, 32, 64, 64, 128, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="head dim 300"):
+        instance_dim(300, BUILT_HEAD_DIMS)
 
 
 # ----------------------------------------------------------------- ssm scan

@@ -45,7 +45,11 @@ HYMBA = ref_get_arch("hymba-1.5b", smoke=True)
 NEW = [ref_get_arch(n, smoke=True) for n in (
     "qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "llava-next-mistral-7b",
     "musicgen-large")]
-CONFIGS = [DENSE, SSM, HYB, HYMBA] + NEW
+# the dense and ssm families' smoke configs (minicpm-smoke's head dim is 18)
+DENSE_SSM = [ref_get_arch(n, smoke=True) for n in (
+    "gemma-2b", "qwen2.5-3b", "minicpm-2b", "falcon-mamba-7b",
+    "qwen1.5-32b")]
+CONFIGS = [DENSE, SSM, HYB, HYMBA] + NEW + DENSE_SSM
 
 
 def _port_cfg(cfg):
@@ -286,6 +290,42 @@ def test_hymba_full_width_shape():
     # the analytic count leaves out final_norm, conv_b and dt_bias
     model = LM(cfg, dtype=torch.bfloat16, device="meta")
     assert sum(p.numel() for p in model.parameters()) == 1_662_209_600
+
+
+# The full-width serves on one 80 GB card: (batch, prompt + decode steps)
+# and the bf16 weights and KV cache in GiB that the plan was made with.
+# 75 GiB is the card's 79.6 GiB less 4.6 GiB for the CUDA context and the
+# activations.
+SERVED_CUTS = {"gemma-2b": (4, 8192 + 32, 4.67, 0.56),
+               "qwen2.5-3b": (4, 8192 + 32, 6.33, 1.13),
+               "minicpm-2b": (4, 8192 + 32, 5.08, 11.29),
+               "falcon-mamba-7b": (4, 8192 + 32, 13.56, 0.0),
+               "llava-next-mistral-7b": (4, 8192 + 32, 13.49, 4.02),
+               "qwen1.5-32b": (1, 2048 + 16, 65.56, 2.52)}
+CARD_PLAN_GIB = 75.0
+
+
+@pytest.mark.parametrize("name", list(SERVED_CUTS))
+def test_full_width_serve_fits_the_card(name, monkeypatch):
+    """Weights plus the decode state of each full-width serve, built on the
+    meta device (no memory): under CARD_PLAN_GIB, and the weights and KV
+    cache the plan's figures to 1 %."""
+    from repro_torch.models import lm as lm_mod
+    monkeypatch.setattr(lm_mod, "resolve_device", torch.device)
+    batch, max_seq, w_gib, kv_gib = SERVED_CUTS[name]
+    cfg = get_arch(name)
+    model = LM(cfg, dtype=torch.bfloat16, device="meta")
+    state = lm_mod.init_decode_state(cfg, batch, max_seq, device="meta")
+
+    def gib(ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if isinstance(t, torch.Tensor)) / 2 ** 30
+    weights, kv = gib(model.parameters()), gib((state.kv_k, state.kv_v))
+    total = weights + kv + gib((state.conv, state.ssm_h))
+    assert total < CARD_PLAN_GIB
+    assert weights == pytest.approx(w_gib, rel=1e-2)
+    assert kv == pytest.approx(kv_gib, rel=1e-2)
+    assert (kv == 0) == (not cfg.has_attention)
 
 
 def test_init_params_distributions_and_seed():
