@@ -147,6 +147,34 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
     losses within 1e-6 of the uninterrupted run, bit-identity reported;
     (c) repro-10m (float32) trained 3 steps on the card and on the CPU
     from the same weights, loss and grad norm within 1e-4 relative.
+16. The device mesh (run after 14): (a) qwen2-moe-a2.7b at full width
+    and depth, phase 9b's 4 x 8192 prefill unsharded and then with the same
+    weights placed (in place) on a one-rank NCCL mesh, through the mesh
+    branches (the MoE's at model size 1): logits bit-identical, one flash
+    launch per layer, and the mesh run's ``max_memory_allocated``; (b) four
+    processes on the one card, a 2 x 2 (data, model) mesh over gloo, with
+    DTensor's functional collectives staged through host memory (gloo's
+    own collectives take CUDA tensors, the functional ones crash on them):
+    hymba-1.5b at full width and depth and qwen2-moe-a2.7b at full width
+    and 6 of its layers, drop-free, served without FSDP (the cut planned
+    with the dry run), a 2 x 2048 prefill (the query-chunk flash branch)
+    and 8 decode steps of fixed tokens against the unsharded card run of
+    the same weights (hymba's logits to 5e-2 relative Frobenius; each
+    qwen2-moe layer on the unsharded run's input to it to OWN_LAYER_TOL,
+    its logits and the share of top-k expert sets that agree reported),
+    every rank's flash and scan launches counted, and
+    ``distributed_coded_matmul`` on the mesh's model axis on phase 4's
+    first pair (L-SAC K=8, N=24) within 1e-6 of float64 ``Σ w_n P_n`` of
+    the kernel's products; (c) the smoke configs of qwen2-moe, kimi-k2,
+    hymba and repro-10m in float32 on the same mesh against one CPU
+    process (prefill 2e-4, decode 2e-3, two train steps' loss and gradient
+    norm 1e-4 relative) and the reference test's MoE block against
+    ``moe_ref`` (1e-4); (d) the dry run (``repro_torch.launch.dryrun``, a
+    fake process group on the CPU, in a process of its own started first):
+    the served qwen2-moe prefill's per-device peak on a 1 x 1 mesh beside
+    (a)'s measured peak (failing if below the weights and KV cache
+    allocated), and kimi-k2-1t-a32b's cells on 16 x 16 H100s printed.
+    The four ranks' times measure nothing.
 15. Print the card's name and power limit, one ``{"kernels": [...]}`` line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -168,19 +196,23 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-# Published peaks of one H100 SXM (dense, at the full 700 W power limit)
-PEAK_FLOPS = {"float32": 67e12,        # FP32 on the CUDA cores
-              "tf32": 495e12,          # TF32 on the tensor cores
-              "bfloat16": 989e12,      # bf16 on the tensor cores
-              "float64": 67e12}
+# Published peaks of one H100 SXM (dense, at the full 700 W power limit):
+# the port's one table, which the dry run's roofline reads too
+from repro_torch.analysis.roofline import HW  # noqa: E402
+
+PEAK_FLOPS = {"float32": HW["peak_flops_fp32"],  # FP32 on the CUDA cores
+              "tf32": HW["peak_flops_tf32"],     # TF32 on the tensor cores
+              "bfloat16": HW["peak_flops"],      # bf16 on the tensor cores
+              "float64": HW["peak_flops_fp64"]}
 # The float32 worker products run three TF32 tensor-core passes per output
 # (3xTF32), so their bound counts 3 x 2*M*N*Z operations at the TF32 rate.
 TF32_PASSES = 3
 # The float32 kernel against the emulation of its own arithmetic
 # (coded_matmul_3xtf32_ref): relative Frobenius error.
 TF32X3_EMU_TOL = 1e-5
-PEAK_BYTES = 3.35e12                   # HBM3
+PEAK_BYTES = HW["hbm_bw"]              # HBM3
 TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 # Flash attention at hymba's prefill length: with N(0, 1) q and k most
 # outputs are about sqrt(e / keys), 0.02-0.05, so the sweep's bf16 5e-2
@@ -3249,6 +3281,790 @@ def phase_coded_runtime(operands: list) -> dict:
             "launches": dist_out["launches"], "total_s": total}
 
 
+# ------------------------------------------------------------ phase 16: mesh
+
+# (a) qwen2-moe-a2.7b at full width and depth on a one-rank NCCL mesh,
+# phase 9b's served 4 x 8192 prefill; (b) four ranks on the card, a 2 x 2
+# gloo mesh: these models (depth, None for the config's), a 2 x 2048 prefill
+# and 8 decode steps of fixed tokens, served without FSDP; (c) the smoke
+# configs in float32 on the same mesh against one CPU process.  Planned
+# with the dry run (PERF.md): with FSDP the weights' gathers through host
+# memory took 66 of qwen2-moe's 80 s at 6 layers on the card; without it
+# hymba moves 1.23 GB per rank and prefill (2.05 with FSDP).  qwen2-moe's
+# depth in (b) is cut to MESH_MOE_LAYERS: at its full 24 layers each rank
+# would hold 17.4 GiB (dry run) beside the whole model it draws, four
+# times over on one 80 GB card; at 6, 7.0 GiB.
+MESH_SEED = 16
+MESH_A_ARCH, MESH_A_BATCH, MESH_A_PROMPT = "qwen2-moe-a2.7b", 4, 8192
+MESH_MOE_LAYERS = 6
+MESH_B = (("hymba-1.5b", None), ("qwen2-moe-a2.7b", MESH_MOE_LAYERS))
+MESH_B_BATCH, MESH_B_PROMPT, MESH_B_STEPS = 2, 2048, 8
+MESH_B_TOL = 5e-2             # relative Frobenius, as phases 8 and 9b
+MESH_C = ("qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "hymba-1.5b", "repro-100m")
+MESH_C_PROMPT, MESH_C_STEPS = 512, 2   # 512 queries: the query-chunk branch
+MESH_MOE_TOL = 1e-4           # tests/test_runtime.py's sharded MoE limit
+# that test's MoE block config (ArchConfig's positional and keyword fields)
+MESH_MOE_BLOCK = (("m", "moe", 1, 32, 2, 2, 0, 97),
+                  {"n_experts": 4, "experts_per_token": 2, "d_ff_expert": 16,
+                   "n_shared_experts": 1, "capacity_factor": 8.0})
+MESH_TRAIN_TOL = 1e-4         # train steps, relative (loss and grad norm)
+MESH_TIMEOUT = 600.0
+MESH_KIMI_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+
+MESH_RANK = r'''
+import datetime, faulthandler, json, sys, time
+from pathlib import Path
+faulthandler.enable()
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, io, root = int(sys.argv[1]), Path(sys.argv[2]), sys.argv[3]
+sys.path[:0] = [root, root + "/src"]
+import chip_smoke as cs
+from repro_torch.configs import get_arch
+from repro_torch.kernels import coded_matmul, flash_attention, ssm_scan
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import init_params
+from repro_torch.models.hints import full, set_mesh
+from repro_torch.models.moe import moe_block
+from repro_torch.optim.adamw import adamw_init
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.coded import distributed_coded_matmul
+from repro_torch.runtime.steps import (make_decode_step, make_prefill_step,
+                                       make_train_step)
+from repro_torch.compat import P, distribute_tensor, placements
+spec = json.loads((io / "spec.json").read_text())
+torch.cuda.set_device(0)
+cs._stage_collectives_through_host("CUDA")
+dist.init_process_group(
+    "gloo", store=dist.FileStore(str(io / "store"), 4), rank=rank,
+    world_size=4, timeout=datetime.timedelta(seconds=300))
+mesh = make_local_mesh(2, 2, device_type="cuda")
+out = {"rank": rank, "b": {}, "c": {}, "times": {}}
+
+
+def zero():
+    torch.cuda.synchronize()
+    flash_attention.launches = ssm_scan.launches = coded_matmul.launches = 0
+
+
+def counts():
+    torch.cuda.synchronize()
+    return {"flash_attention": flash_attention.launches,
+            "ssm_scan": ssm_scan.launches,
+            "coded_matmul": coded_matmul.launches}
+
+
+# (b) full width on the card mesh
+for arch, layers in spec["b"]:
+    t0 = time.perf_counter()
+    cfg = cs.mesh_b_config(arch, layers)
+
+    def build():
+        gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
+        return shd.distribute_lm(init_params(cfg, device="cuda",
+                                             generator=gen), mesh)
+
+    model = build()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    init_s = time.perf_counter() - t0
+    cs._stage_collectives_through_host.seconds = 0.0
+    toks = np.load(io / f"b_{arch}_tokens.npy")
+    steps = np.load(io / f"b_{arch}_steps.npy")
+    ref = torch.load(io / f"b_{arch}_ref.pt")
+    set_mesh(mesh)
+    zero()
+    with cs._Routing() as rt:
+        logits, state = make_prefill_step(cfg, toks.shape[1] + len(steps))(
+            model, {"tokens": toks})
+        errs = [cs.rel_fro(full(logits).cpu(), ref["logits"][0])]
+        step = make_decode_step(cfg)
+        for t, tok in enumerate(steps):
+            logits, state = step(model, tok, state)
+            errs.append(cs.rel_fro(full(logits).cpu(), ref["logits"][t + 1]))
+        torch.cuda.synchronize()
+    row = {"rel_err": errs, "launches": counts(), "init_s": init_s,
+           "s": time.perf_counter() - t0,
+           "collective_s": cs._stage_collectives_through_host.seconds}
+    if cfg.has_moe:
+        # each layer on the unsharded prefill's input to it
+        from repro_torch.models.blocks import block_forward
+        from repro_torch.models.lm import layer_windows
+        lay = torch.load(io / f"b_{arch}_layers.pt")
+        pos = torch.arange(toks.shape[1], device="cuda")[None].expand(
+            toks.shape[0], toks.shape[1])
+        set_mesh(mesh)
+        own = []
+        with torch.no_grad():
+            for p_l, win, x, y in zip(model.layers, layer_windows(cfg),
+                                      lay["ins"], lay["outs"]):
+                xd = distribute_tensor(x.cuda(), mesh,
+                                       placements(P("data"), mesh),
+                                       src_data_rank=None)
+                got = block_forward(p_l, xd, cfg, pos, win)[0]
+                own.append(cs.rel_fro(full(got).cpu(), y))
+        set_mesh(None)
+        row["own_layer_rel_err"] = own
+        # this rank's data shard of the prefill's tokens, layer by layer
+        B = toks.shape[0]
+        d = mesh.get_local_rank("data")
+        T = B * toks.shape[1]
+        lo, hi = d * T // 2, (d + 1) * T // 2
+        agree = []
+        for got, want in zip(rt.ids[:cfg.n_layers], ref["ids"]):
+            w = want[lo:hi].to(got.device)
+            agree.append(float((got.sort(-1).values == w.sort(-1).values)
+                               .all(-1).float().mean()))
+        row["topk_agreement_by_layer"] = agree
+    set_mesh(None)
+    out["b"][arch] = row
+    del model, state, logits
+    torch.cuda.empty_cache()
+
+# (b) the coded job on the model axis
+if not spec.get("coded", True):
+    (io / f"out{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    sys.exit(0)
+t0 = time.perf_counter()
+EA = torch.from_numpy(np.load(io / "coded_EA.npy")).cuda()
+EB = torch.from_numpy(np.load(io / "coded_EB.npy")).cuda()
+w = torch.from_numpy(np.load(io / "coded_w.npy")).cuda()
+zero()
+est = distributed_coded_matmul(EA, EB, w, mesh, axis="model")
+out["coded"] = {"launches": counts(), "s": time.perf_counter() - t0}
+ref = torch.from_numpy(np.load(io / "coded_ref.npy")).cuda()
+out["coded"]["rel_err"] = float(torch.linalg.vector_norm(est.double() - ref)
+                                / torch.linalg.vector_norm(ref))
+del EA, EB, est, ref
+torch.cuda.empty_cache()
+
+# (c) the smoke configs, float32, against one CPU process
+t0 = time.perf_counter()
+refs = torch.load(io / "c_refs.pt")
+for arch in spec["c"]:
+    cfg = get_arch(arch, smoke=True).replace(dtype="float32")
+    if cfg.has_moe:
+        cfg = cfg.replace(capacity_factor=float(cfg.n_experts))
+    r = refs[arch]
+
+    def card_model():
+        m = init_params(cfg, device="cpu", dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(0))
+        return shd.distribute_lm(m.to("cuda"), mesh)
+
+    set_mesh(mesh)
+    model = card_model()
+    logits, state = make_prefill_step(cfg, r["tokens"].shape[1] + len(
+        r["steps"]))(model, {"tokens": r["tokens"]})
+    pre = cs.check_close(full(logits).cpu(), r["logits"][0], 2e-4, 2e-4,
+                         f"{arch} smoke prefill, 2x2 card mesh vs CPU")
+    dec = 0.0
+    step = make_decode_step(cfg)
+    for t, tok in enumerate(r["steps"]):
+        logits, state = step(model, tok, state)
+        dec = max(dec, cs.check_close(
+            full(logits).cpu(), r["logits"][t + 1], 2e-3, 2e-3,
+            f"{arch} smoke decode {t}, 2x2 card mesh vs CPU"))
+    trained = card_model()
+    opt = shd.distribute_adamw(
+        adamw_init(dict(trained.named_parameters())), mesh,
+        shd.param_shardings(cfg, mesh, trained))
+    train = make_train_step(cfg)
+    rows = []
+    for i in range(2):
+        trained, opt, m = train(trained, opt, {"tokens": r["train_tokens"]},
+                                i)
+        rows.append([float(full(m["loss"])), float(full(m["grad_norm"]))])
+    set_mesh(None)
+    out["c"][arch] = {"prefill_max_abs_err": pre,
+                      "decode_max_abs_err": dec, "train": rows}
+    del model, trained, opt, state
+# the reference test's MoE block (tests/test_runtime.py) against moe_ref
+mo = torch.load(io / "c_moe.pt")
+from repro_torch.configs import ArchConfig
+cfg = ArchConfig(*cs.MESH_MOE_BLOCK[0], **cs.MESH_MOE_BLOCK[1])
+p = {}
+for name, t in mo["weights"].items():
+    dt = distribute_tensor(t.cuda(), mesh, placements(shd.leaf_spec(
+        "layers.0.moe." + name, t.shape, cfg, mesh), mesh),
+        src_data_rank=None)
+    if name.startswith("shared."):
+        p.setdefault("shared", {})[name[7:]] = dt
+    else:
+        p[name] = dt
+x = distribute_tensor(mo["x"].cuda(), mesh, placements(P("data"), mesh),
+                      src_data_rank=None)
+set_mesh(mesh)
+got, _ = moe_block(p, x, cfg)
+set_mesh(None)
+out["c"]["moe_block_max_abs_err"] = float(
+    (full(got).cpu() - mo["want"]).abs().max())
+out["times"]["c"] = time.perf_counter() - t0
+(io / f"out{rank}.json").write_text(json.dumps(out))
+dist.barrier()
+dist.destroy_process_group()
+'''
+
+MESH_PLAN = r'''
+import json, sys
+from pathlib import Path
+root, io = sys.argv[1], Path(sys.argv[2])
+sys.path.insert(0, root + "/src")
+from repro_torch.configs import ShapeSpec, get_arch
+from repro_torch.launch.dryrun import run_cell
+out = {"served": run_cell(
+    sys.argv[3], "served_prefill", "1x1",
+    shape=ShapeSpec("served_prefill", int(sys.argv[5]), int(sys.argv[4]),
+                    "prefill"))}
+for shape in sys.argv[6].split(","):
+    out["kimi_" + shape] = run_cell("kimi-k2-1t-a32b", shape, "single")
+(io / "plans.json").write_text(json.dumps(out))
+'''
+
+
+def _stage_collectives_through_host(key: str = "CUDA") -> None:
+    """Phase 16's four ranks run over gloo, whose own collectives take CUDA
+    tensors but whose functional collectives — what DTensor issues — crash
+    on them in their wait (a segmentation fault, found on the card).  This
+    registers ``key`` implementations of the functional collectives that
+    copy the operand to the host, run gloo's own collective on it, and copy
+    the result back: synchronous, so their wait has nothing to do."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
+
+    def host(t):
+        return t.detach().to("cpu").contiguous()
+
+    def timed(fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                _stage_collectives_through_host.seconds += \
+                    time.perf_counter() - t0
+        return run
+
+    def gather(input, group_size, group_name):
+        h = host(input)
+        out = h.new_empty((group_size * h.shape[0],) + tuple(h.shape[1:]))
+        dist.all_gather_into_tensor(out, h,
+                                    group=_resolve_process_group(group_name))
+        return out.to(input.device)
+
+    def reduce(input, reduce_op, group_name):
+        h = host(input).clone()
+        dist.all_reduce(h, op=ops[reduce_op.lower()],
+                        group=_resolve_process_group(group_name))
+        return h.to(input.device)
+
+    def reduce_(input, reduce_op, group_name):
+        return input.copy_(reduce(input, reduce_op, group_name))
+
+    def scatter(input, reduce_op, group_size, group_name):
+        h = host(input)
+        out = h.new_empty((h.shape[0] // group_size,) + tuple(h.shape[1:]))
+        dist.reduce_scatter_tensor(out, h, op=ops[reduce_op.lower()],
+                                   group=_resolve_process_group(group_name))
+        return out.to(input.device)
+
+    def to_all(input, output_split_sizes, input_split_sizes, group_name):
+        h = host(input)
+        rows = sum(output_split_sizes) if output_split_sizes else h.shape[0]
+        out = h.new_empty((rows,) + tuple(h.shape[1:]))
+        dist.all_to_all_single(out, h, list(output_split_sizes) or None,
+                               list(input_split_sizes) or None,
+                               group=_resolve_process_group(group_name))
+        return out.to(input.device)
+
+    def wait(tensor):
+        return tensor
+
+    def shard_dim_alltoall(input, gather_dim, shard_dim, group_name):
+        pg = _resolve_process_group(group_name)
+        n = dist.get_world_size(pg)
+        full = gather(input.movedim(gather_dim, 0).contiguous(), n,
+                      group_name).movedim(0, gather_dim)
+        return full.chunk(n, dim=shard_dim)[dist.get_rank(pg)].contiguous()
+
+    impls = {("_c10d_functional", "all_gather_into_tensor"): gather,
+             ("_c10d_functional", "all_reduce"): reduce,
+             ("_c10d_functional", "all_reduce_"): reduce_,
+             ("_c10d_functional", "reduce_scatter_tensor"): scatter,
+             ("_c10d_functional", "all_to_all_single"): to_all,
+             ("_c10d_functional", "wait_tensor"): wait,
+             ("_c10d_functional_autograd", "all_gather_into_tensor"): gather,
+             ("_c10d_functional_autograd", "reduce_scatter_tensor"): scatter,
+             ("_c10d_functional_autograd", "all_to_all_single"): to_all,
+             ("_dtensor", "shard_dim_alltoall"): shard_dim_alltoall}
+    libs = {}
+    for (ns, name), fn in impls.items():
+        if ns not in libs:
+            libs[ns] = torch.library.Library(ns, "IMPL")
+        libs[ns].impl(name, timed(fn), key)
+    _stage_collectives_through_host.libs = libs   # keep them registered
+    _stage_collectives_through_host.seconds = 0.0
+
+def mesh_b_config(arch: str, layers):
+    """(b)'s config of ``arch``: ``layers`` deep (its own depth for None),
+    served without FSDP (``fsdp=False``: the reference's rules then split
+    the weights over the model axis only), and an MoE drop-free (capacity
+    factor E), since a rank's capacity comes from its own tokens, as in the
+    reference, and with drops the sharded and unsharded runs would drop
+    different assignments."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch).replace(fsdp=False)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    if cfg.has_moe:
+        cfg = cfg.replace(capacity_factor=float(cfg.n_experts))
+    return cfg
+
+
+def _start_mesh_plans(io: Path) -> subprocess.Popen:
+    """The dry run of (d), on the CPU in a process of its own (a fake
+    process group of 1 and of 256 ranks; no card): qwen2-moe's served
+    prefill on a 1 x 1 mesh and kimi-k2-1t-a32b's cells on 16 x 16."""
+    env = dict(_child_env(), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-c", MESH_PLAN, str(ROOT), str(io), MESH_A_ARCH,
+         str(MESH_A_BATCH), str(MESH_A_PROMPT), ",".join(MESH_KIMI_SHAPES)],
+        env=env, stdout=open(io / "plans.log", "w"),
+        stderr=subprocess.STDOUT)
+
+
+def _finish_mesh_plans(proc: subprocess.Popen, io: Path) -> dict:
+    try:
+        rc = proc.wait(timeout=MESH_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        fail(f"phase 16 dry run exited {rc}: "
+             + (io / "plans.log").read_text()[-3000:])
+    return json.loads((io / "plans.json").read_text())
+
+
+def _mesh_one_rank(dev) -> dict:
+    """(a) the served prefill unsharded, then the same weights placed on a
+    one-rank NCCL mesh (in place) through the mesh branches: logits
+    bit-identical, the peak memory of the mesh run."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.hints import full, set_mesh
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime.steps import make_prefill_step
+    cfg, model, n, nbytes, _ = _lm_model(MESH_A_ARCH, dev, MESH_SEED)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MESH_SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (MESH_A_BATCH, MESH_A_PROMPT),
+                           device=dev, generator=gen)
+    step = make_prefill_step(cfg, MESH_A_PROMPT)
+    want, state = step(model, {"tokens": prompt})
+    del state
+    torch.cuda.synchronize()
+    _init_dist_world1(ROOT / "build" / "mesh_store")
+    try:
+        mesh = make_local_mesh(1, 1, device_type="cuda")
+        shd.distribute_lm(model, mesh)      # one rank: the same storage
+        set_mesh(mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        got, state = step(model, {"tokens": prompt})
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        kv = sum(t.to_local().numel() * t.to_local().element_size()
+                 for t in state[:4] if isinstance(t, torch.Tensor))
+        same = bool(torch.equal(full(got), want))
+        set_mesh(None)
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+    del model, state, got, want, prompt
+    torch.cuda.empty_cache()
+    if launches != cfg.n_layers:
+        fail(f"mesh prefill launched flash {launches} times, not once per "
+             f"layer ({cfg.n_layers})")
+    if not same:
+        fail(f"{MESH_A_ARCH} on a one-rank NCCL mesh: prefill logits differ "
+             "from the unsharded prefill of the same weights")
+    log(f"(a) {MESH_A_ARCH} {MESH_A_BATCH} x {MESH_A_PROMPT} prefill on a "
+        f"one-rank NCCL mesh (mesh branches, MoE at model size 1): logits "
+        f"bit-identical to the unsharded prefill; {launches} flash launches;"
+        f" {run_s:.3f} s; peak {peak / 2**30:.2f} GiB (weights "
+        f"{nbytes / 2**30:.2f} GiB, KV cache {kv / 2**30:.2f} GiB) ({CARD})")
+    return {"bit_identical": same, "launches": {"flash_attention": launches,
+                                                "ssm_scan": 0},
+            "prefill_s": run_s, "peak_bytes": peak, "weight_bytes": nbytes,
+            "kv_bytes": kv}
+
+
+def _layer_io(cfg, model, toks) -> dict:
+    """The unsharded prefill's input to and output of each layer (on the
+    host): a layer run on the mesh on the same input is held to the same
+    output, without the routing cascade of the layers before it."""
+    from repro_torch.models.blocks import block_forward
+    from repro_torch.models.lm import embed_tokens, layer_windows
+    tok = torch.as_tensor(toks, device="cuda")
+    B, L = tok.shape[:2]
+    positions = torch.arange(L, device="cuda")[None].expand(B, L)
+    ins, outs = [], []
+    with torch.no_grad():
+        x = embed_tokens(model, tok, cfg)
+        for p_l, win in zip(model.layers, layer_windows(cfg)):
+            ins.append(x.cpu())
+            x = block_forward(p_l, x, cfg, positions, win)[0]
+            outs.append(x.cpu())
+    return {"ins": ins, "outs": outs}
+
+
+def _mesh_references(dev, io: Path, pair) -> dict:
+    """What the four ranks are held to: (b) each model's unsharded card run
+    of the same weights and tokens (logits, and each MoE layer's top-k
+    expert ids), the coded job's operands and float64 ``Σ w_n P_n`` of the
+    kernel's products; (c) the smoke configs' one-CPU-process runs and the
+    reference test's MoE block against ``moe_ref``."""
+    import numpy as np
+
+    from repro_torch.configs import ArchConfig, get_arch
+    from repro_torch.core import split_contraction
+    from repro_torch.kernels import worker_products
+    from repro_torch.launch.serve import CODES
+    from repro_torch.models import init_params
+    from repro_torch.models.moe import moe_ref
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.coded import (decode_weight_vector,
+                                           encode_operands)
+    from repro_torch.runtime.steps import (make_decode_step,
+                                           make_prefill_step,
+                                           make_train_step)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(MESH_SEED)
+    for arch, layers in MESH_B:
+        cfg = mesh_b_config(arch, layers)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(MESH_SEED)
+        model = init_params(cfg, device=dev, generator=gen)
+        toks = rng.integers(0, cfg.vocab_size, (MESH_B_BATCH, MESH_B_PROMPT))
+        steps = rng.integers(0, cfg.vocab_size,
+                             (MESH_B_STEPS, MESH_B_BATCH, 1))
+        np.save(io / f"b_{arch}_tokens.npy", toks)
+        np.save(io / f"b_{arch}_steps.npy", steps)
+        with _Routing() as rt:
+            logits, state = make_prefill_step(cfg, MESH_B_PROMPT +
+                                              MESH_B_STEPS)(
+                model, {"tokens": toks})
+            outs = [logits.float().cpu()]
+            step = make_decode_step(cfg)
+            for tok in steps:
+                logits, state = step(model, tok, state)
+                outs.append(logits.float().cpu())
+        torch.save({"logits": outs,
+                    "ids": [i.cpu() for i in rt.ids[:cfg.n_layers]]},
+                   io / f"b_{arch}_ref.pt")
+        if cfg.has_moe:                    # each layer's own input, output
+            torch.save(_layer_io(cfg, model, toks), io / f"b_{arch}_layers.pt")
+        del model, state, logits
+        torch.cuda.empty_cache()
+    # the coded job: phase 4's first pair, L-SAC (ortho) K=8, N=24
+    A, B = pair
+    code = CODES["lsac_ortho"].build(8, 24)
+    E_A, E_B = encode_operands(code, *split_contraction(A, B, code.K))
+    w = decode_weight_vector(code, np.random.default_rng(
+        DIST_ORDER_SEED).permutation(code.N), code.recovery_threshold)
+    ea = torch.from_numpy(E_A).float()
+    eb = torch.from_numpy(E_B).float()
+    del E_A, E_B
+    np.save(io / "coded_EA.npy", ea.numpy())
+    np.save(io / "coded_EB.npy", eb.numpy())
+    np.save(io / "coded_w.npy", w.astype(np.float32))
+    P = worker_products(ea.cuda(), eb.cuda()).double()   # not counted
+    ref = torch.einsum("w,wij->ij", torch.as_tensor(
+        w.astype(np.float32), dtype=torch.float64, device="cuda"), P)
+    np.save(io / "coded_ref.npy", ref.cpu().numpy())
+    del ea, eb, P, ref
+    torch.cuda.empty_cache()
+    # (c) one CPU process
+    refs = {}
+    for arch in MESH_C:
+        cfg = get_arch(arch, smoke=True).replace(dtype="float32")
+        if cfg.has_moe:                      # drop-free (see the tests)
+            cfg = cfg.replace(capacity_factor=float(cfg.n_experts))
+        g = torch.Generator().manual_seed(MESH_SEED + 2)
+        toks = torch.randint(0, cfg.vocab_size, (4, MESH_C_PROMPT),
+                             generator=g)
+        steps = torch.randint(0, cfg.vocab_size, (MESH_C_STEPS, 4, 1),
+                              generator=g)
+        train = torch.randint(0, cfg.vocab_size, (4, 64), generator=g)
+        if cfg.has_moe:     # equal halves: per-shard aux == one-process aux
+            train[2:] = train[:2]
+
+        def cpu_model():
+            return init_params(cfg, device="cpu", dtype=torch.float32,
+                               generator=torch.Generator().manual_seed(0))
+
+        model = cpu_model()
+        logits, state = make_prefill_step(
+            cfg, MESH_C_PROMPT + MESH_C_STEPS, device="cpu")(
+                model, {"tokens": toks})
+        outs = [logits]
+        step = make_decode_step(cfg, device="cpu")
+        for tok in steps:
+            logits, state = step(model, tok, state)
+            outs.append(logits)
+        trained = cpu_model()
+        opt = adamw_init(dict(trained.named_parameters()))
+        tr = make_train_step(cfg, device="cpu")
+        rows = []
+        for i in range(2):
+            trained, opt, m = tr(trained, opt, {"tokens": train}, i)
+            rows.append([float(m["loss"]), float(m["grad_norm"])])
+        refs[arch] = {"tokens": toks, "steps": steps, "logits": outs,
+                      "train_tokens": train, "train": rows}
+    torch.save(refs, io / "c_refs.pt")
+    cfg = ArchConfig(*MESH_MOE_BLOCK[0], **MESH_MOE_BLOCK[1])
+    small = init_params(cfg, device="cpu", dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(MESH_SEED))
+    p = small.layers[0].moe
+    x = torch.randn(32, 32, generator=torch.Generator().manual_seed(1))
+    weights = {k: v.detach().clone() for k, v in p.items()
+               if k != "shared"}
+    weights.update({"shared." + k: v.detach().clone()
+                    for k, v in p["shared"].items()})
+    torch.save({"weights": weights, "x": x, "want": moe_ref(p, x, cfg)},
+               io / "c_moe.pt")
+    s = time.perf_counter() - t0
+    log(f"phase 16 references (unsharded card runs, coded job, one CPU "
+        f"process): {s:.1f} s")
+    return {"s": s, "code_sum_abs_w": float(np.abs(w).sum())}
+
+
+def _run_mesh_ranks(io: Path) -> list:
+    """(b) and (c): four processes on the one card, a 2 x 2 gloo mesh."""
+    (io / "spec.json").write_text(json.dumps(
+        {"seed": MESH_SEED, "b": MESH_B, "c": MESH_C}))
+    env = dict(_child_env(), OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(4):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", MESH_RANK, str(r), str(io),
+                 str(ROOT)], env=env, stdout=open(io / f"rank{r}.log", "w"),
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MESH_TIMEOUT
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0] * 4:
+        fail(f"phase 16 ranks exited {rcs}: " + "".join(
+            (io / f"rank{r}.log").read_text()[-2500:] for r in range(4)))
+    log(f"(b, c) four ranks on the card (2 x 2 gloo mesh): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return [json.loads((io / f"out{r}.json").read_text()) for r in range(4)]
+
+
+def _check_mesh_ranks(ranks: list, io: Path):
+    """(b) every rank's logits, launches and the coded job; (c) the smoke
+    configs against one CPU process."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    # (b) every rank's logits, launches and the coded job
+    four = {}
+    for arch, layers in MESH_B:
+        rows = [r["b"][arch] for r in ranks]
+        # the logits, prefill and decode; for an MoE model each layer's own
+        # error instead (as phase 9c holds every layer), since flipped
+        # routes move its logits by whole experts' outputs and the logits'
+        # error then varies from run to run (PERF.md), and its logits and
+        # routing agreement are reported
+        cfg = mesh_b_config(arch, layers)
+        if cfg.has_moe:
+            own = max(max(r["own_layer_rel_err"]) for r in rows)
+            if not own <= _own_layer_tol(cfg):
+                fail(f"{arch} on the 2 x 2 card mesh: a layer on the "
+                     f"unsharded run's input to it {own:.3e} from its output"
+                     f" (limit {_own_layer_tol(cfg)}); by layer "
+                     f"{rows[0]['own_layer_rel_err']}")
+        held = [] if cfg.has_moe else [e for r in rows for e in r["rel_err"]]
+        worst = max(held, default=0.0)
+        if not worst <= MESH_B_TOL:
+            fail(f"{arch} on the 2 x 2 card mesh: logits {worst:.3e} from "
+                 f"the unsharded card run (limit {MESH_B_TOL}); by rank "
+                 f"and step {[r['rel_err'] for r in rows]}; top-k "
+                 f"agreement by layer "
+                 f"{[r.get('topk_agreement_by_layer') for r in rows]}")
+        for r, row in enumerate(rows):
+            if row["launches"]["flash_attention"] <= 0:
+                fail(f"{arch} rank {r}: no flash launch on the mesh")
+            if get_arch(arch).has_ssm and row["launches"]["ssm_scan"] <= 0:
+                fail(f"{arch} rank {r}: no scan launch on the mesh")
+        agree = None
+        if "topk_agreement_by_layer" in rows[0]:
+            agree = float(np.mean([a for r in rows
+                                   for a in r["topk_agreement_by_layer"]]))
+        four[arch] = {"layers": layers, "held_max_rel_err": worst,
+                      "own_layer_rel_err": rows[0].get("own_layer_rel_err"),
+                      "rel_err_by_step": rows[0]["rel_err"],
+                      "prefill_rel_err": max(r["rel_err"][0] for r in rows),
+                      "launches_by_rank": [r["launches"] for r in rows],
+                      "topk_agreement": agree,
+                      "init_s": max(r["init_s"] for r in rows),
+                      "s": max(r["s"] for r in rows)}
+        log(f"(b) {arch}{'' if layers is None else f' ({layers} of its layers)'}"
+            f" on the 2 x 2 gloo card mesh, {MESH_B_BATCH} x {MESH_B_PROMPT}"
+            f" prefill (query-chunk flash) + {MESH_B_STEPS} decode steps: "
+            + (f"each layer on the unsharded run's input to it at most "
+               f"{max(four[arch]['own_layer_rel_err']):.3e} from its output "
+               f"(limit {_own_layer_tol(cfg)}); logits (reported) "
+               if cfg.has_moe else
+               f"logits at most {worst:.3e} from the unsharded card run "
+               f"(limit {MESH_B_TOL}); ")
+            + "by step " + " ".join(f"{e:.2e}" for e in rows[0]["rel_err"])
+            + (f"; top-k expert sets agree {100 * agree:.2f} %"
+               if agree is not None else "")
+            + "; launches by rank " + ", ".join(
+                f"flash {x['flash_attention']} scan {x['ssm_scan']}"
+                for x in four[arch]["launches_by_rank"])
+            + f"; {four[arch]['s']:.1f} s, {four[arch]['init_s']:.1f} s of "
+              f"it the draws, "
+              f"{max(r['collective_s'] for r in rows):.1f} s in the host-"
+              "staged collectives")
+    coded = [r["coded"] for r in ranks]
+    cerr = max(c["rel_err"] for c in coded)
+    if not cerr <= DIST_DECODE_TOL:
+        fail(f"distributed_coded_matmul on the mesh's model axis: "
+             f"{cerr:.3e} from float64 sum w_n P_n (limit {DIST_DECODE_TOL})")
+    if any(c["launches"]["coded_matmul"] <= 0 for c in coded):
+        fail("distributed_coded_matmul on the mesh: a rank launched no "
+             "coded_matmul")
+    log(f"(b) distributed_coded_matmul on the 2 x 2 mesh's model axis "
+        f"(lsac_ortho K=8 N=24, 12 workers per model rank): {cerr:.2e} from"
+        f" float64 sum w_n P_n (limit {DIST_DECODE_TOL}); coded_matmul "
+        f"launches by rank {[c['launches']['coded_matmul'] for c in coded]};"
+        f" {max(c['s'] for c in coded):.1f} s")
+
+    # (c) the smoke configs against one CPU process
+    cpu = torch.load(io / "c_refs.pt")
+    small = {}
+    for arch in MESH_C:
+        rows = [r["c"][arch] for r in ranks]
+        tr_err = 0.0
+        for row in rows:
+            for (l1, g1), (l0, g0) in zip(row["train"], cpu[arch]["train"]):
+                tr_err = max(tr_err, abs(l1 - l0) / abs(l0),
+                             abs(g1 - g0) / abs(g0))
+        if not tr_err <= MESH_TRAIN_TOL:
+            fail(f"{arch} smoke: two train steps on the 2 x 2 card mesh "
+                 f"{tr_err:.3e} from one CPU process (limit "
+                 f"{MESH_TRAIN_TOL})")
+        small[arch] = {"prefill_max_abs_err": max(
+            r["prefill_max_abs_err"] for r in rows), "decode_max_abs_err":
+            max(r["decode_max_abs_err"] for r in rows),
+            "train_max_rel_err": tr_err}
+    moe_err = max(r["c"]["moe_block_max_abs_err"] for r in ranks)
+    if not moe_err <= MESH_MOE_TOL:
+        fail(f"sharded MoE block on the 2 x 2 card mesh: {moe_err:.3e} from "
+             f"moe_ref (limit {MESH_MOE_TOL})")
+    log("(c) smoke configs, float32, 2 x 2 card mesh vs one CPU process "
+        "(prefill 2e-4, decode 2e-3, two train steps 1e-4 relative): "
+        + "; ".join(f"{a} {v['prefill_max_abs_err']:.1e} / "
+                    f"{v['decode_max_abs_err']:.1e} / "
+                    f"{v['train_max_rel_err']:.1e}"
+                    for a, v in small.items())
+        + f"; the reference test's MoE block {moe_err:.2e} from moe_ref "
+          f"(limit {MESH_MOE_TOL}); "
+          f"{max(r['times']['c'] for r in ranks):.1f} s")
+
+    return four, coded, cerr, small, moe_err
+
+
+def phase_mesh(dev, pair) -> dict:
+    """Phase 16: the device mesh (module note)."""
+    import shutil
+    t_phase = time.perf_counter()
+    io = ROOT / "build" / "mesh16"
+    shutil.rmtree(io, ignore_errors=True)
+    io.mkdir(parents=True)
+    planner = _start_mesh_plans(io)
+    try:
+        one = _mesh_one_rank(dev)
+        refs = _mesh_references(dev, io, pair)
+        ranks = _run_mesh_ranks(io)
+        four, coded, cerr, small, moe_err = _check_mesh_ranks(ranks, io)
+    except BaseException:
+        planner.kill()
+        planner.wait()
+        raise
+    plans = _finish_mesh_plans(planner, io)
+
+    # (d) the dry run against the card
+    served = plans["served"]["memory"]
+    held = one["weight_bytes"] + one["kv_bytes"]
+    if served["peak_bytes_per_device"] < held:
+        fail(f"dry run predicts {served['peak_bytes_per_device'] / 2**30:.2f}"
+             f" GiB for {MESH_A_ARCH}'s served prefill, below the "
+             f"{held / 2**30:.2f} GiB of weights and KV cache allocated")
+    log(f"(d) {MESH_A_ARCH} {MESH_A_BATCH} x {MESH_A_PROMPT} prefill, 1 x 1 "
+        f"mesh: dry run {served['peak_bytes_per_device'] / 2**30:.2f} GiB "
+        f"per device (model prediction) against "
+        f"torch.cuda.max_memory_allocated {one['peak_bytes'] / 2**30:.2f} "
+        f"GiB (measured; weights + KV cache {held / 2**30:.2f} GiB) ({CARD})")
+    kimi = {}
+    for shape in MESH_KIMI_SHAPES:
+        rec = plans["kimi_" + shape]
+        if rec.get("status") != "ok":
+            fail(f"kimi-k2 {shape} dry run: {rec.get('status')}")
+        peak = rec["memory"]["peak_bytes_per_device"]
+        rf = rec["roofline"]
+        kimi[shape] = {"peak_gib": peak / 2**30,
+                       "fits_80gb": peak <= 80e9,
+                       "flops_per_device": rec["cost"]["flops_per_device"],
+                       "wire_bytes_per_device":
+                           rec["collectives"]["total_wire_bytes"],
+                       "roofline": rf}
+        log(f"(d) kimi-k2-1t-a32b {shape} on 16 x 16 H100s (dry run, "
+            f"datasheet model): {peak / 2**30:.2f} GiB/device "
+            f"({'fits' if peak <= 80e9 else 'does not fit'} 80 GB), "
+            f"{rec['cost']['flops_per_device']:.3e} FLOP/device, "
+            f"{rec['collectives']['total_wire_bytes'] / 1e9:.2f} GB wire/"
+            f"device; compute {rf['compute_s']:.3g} s, memory "
+            f"{rf['memory_s']:.3g} s, collective {rf['collective_s']:.3g} s "
+            f"({rf['dominant']})")
+    total = time.perf_counter() - t_phase
+    log(f"mesh phase: {total:.1f} s ({CARD}); the four ranks' times measure "
+        "nothing: they share one card, and gloo moves CUDA tensors through "
+        "host memory")
+    launches = {"one_rank": one["launches"],
+                **{f"{a}_rank{r}": four[a]["launches_by_rank"][r]
+                   for a, _ in MESH_B for r in range(4)},
+                **{f"coded_rank{r}": c["launches"]
+                   for r, c in enumerate(coded)}}
+    return {"one_rank": one, "four_ranks": four, "coded_rel_err": cerr,
+            "smoke": small, "moe_block_max_abs_err": moe_err,
+            "served_plan": plans["served"], "kimi": kimi,
+            "references": refs, "launches": launches, "total_s": total}
+
+
+
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3263,7 +4079,6 @@ def main(argv=None) -> int:
         print("[chip_smoke] run from a checkout of the repository (no "
               "src/repro_torch next to this script)", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     global CARD
     t_start = time.perf_counter()
     card = CARD = card_line()
@@ -3308,6 +4123,7 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t_new:.1f} s ({card})")
     cluster = phase_cluster(lsac, paper_ops)
     coded_runtime = phase_coded_runtime(paper_ops)
+    mesh = phase_mesh(dev, paper_ops[0])
     del paper_ops
 
     # The exact L-SAC fit reads the first R completions.  Batch 1's
@@ -3335,14 +4151,17 @@ def main(argv=None) -> int:
             "autotune": autotune["device"], "cluster": cluster,
             "distributed": coded_runtime}
     mm32, enc_main = mm["float32"], enc["batch_rows24"]
+    mesh_runs = mesh["launches"]
+    coded_runs = {**{k: r["launches"]["coded_matmul"]
+                     for k, r in runs.items()},
+                  **{f"mesh_{k}": v["coded_matmul"]
+                     for k, v in mesh_runs.items() if "coded_matmul" in v}}
     kernels = [
         {"name": "coded_matmul", "status": "ported", "route": "cuda",
          "source": "src/repro_torch/csrc/coded_matmul.cu",
          "replaces": "src/repro/kernels/coded_matmul/kernel.py:50",
-         "launches": sum(r["launches"]["coded_matmul"]
-                         for r in runs.values()),
-         "launches_by_run": {k: r["launches"]["coded_matmul"]
-                             for k, r in runs.items()},
+         "launches": sum(coded_runs.values()),
+         "launches_by_run": coded_runs,
          "shape": mm32["shape"], "max_abs_err": mm32["max_abs_err"],
          "ms": mm32["ms"], "plain_ms": mm32["plain_ms"],
          "bound_ms": mm32["bound_ms"], "bound_by": mm32["bound_by"],
@@ -3366,10 +4185,15 @@ def main(argv=None) -> int:
                   "musicgen_served": families["musicgen"]["launches"][
                       "flash_attention"],
                   **{f"{a}_served": dense[a]["launches"]["flash_attention"]
-                     for a in DENSE_ARCHS + (BIG_ARCH,)}}
+                     for a in DENSE_ARCHS + (BIG_ARCH,)},
+                  **{f"mesh_{k}": v["flash_attention"]
+                     for k, v in mesh_runs.items()
+                     if "flash_attention" in v}}
     scan_runs = {"hymba_served": lm["launches"]["ssm_scan"],
                  **{f"{a}_served": dense[a]["launches"]["ssm_scan"]
-                    for a in DENSE_ARCHS + (BIG_ARCH,)}}
+                    for a in DENSE_ARCHS + (BIG_ARCH,)},
+                 **{f"mesh_{k}": v["ssm_scan"]
+                    for k, v in mesh_runs.items() if "ssm_scan" in v}}
     kernels += [
         {"name": "flash_attention", "status": "ported", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -3401,7 +4225,8 @@ def main(argv=None) -> int:
              "families": families, "dense": dense,
              "open_loop": open_loop, "autotune": autotune,
              "engine": engine, "cluster": cluster,
-             "coded_runtime": coded_runtime, "kernels": kernels},
+             "coded_runtime": coded_runtime, "mesh": mesh,
+             "kernels": kernels},
             indent=2))
     print(card)
     print(json.dumps({"kernels": kernels, "not_ported": []}))

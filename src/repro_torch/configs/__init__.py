@@ -1,7 +1,8 @@
 """Architecture configs (copies of the reference's) + shape specs."""
 from .base import SHAPES, ArchConfig, ShapeSpec
-from .registry import (ARCH_NAMES, PORTED_FAMILIES, check_family, get_arch,
-                       get_shape)
+from .registry import (ARCH_NAMES, PORTED_FAMILIES, cells, check_family,
+                       get_arch, get_shape)
 
 __all__ = ["SHAPES", "ArchConfig", "ShapeSpec", "ARCH_NAMES",
-           "PORTED_FAMILIES", "check_family", "get_arch", "get_shape"]
+           "PORTED_FAMILIES", "cells", "check_family", "get_arch",
+           "get_shape"]

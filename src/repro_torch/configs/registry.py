@@ -14,7 +14,7 @@ from . import (falcon_mamba_7b, gemma_2b, hymba_1_5b, kimi_k2_1t_a32b,
 from .base import SHAPES, ArchConfig, ShapeSpec
 
 __all__ = ["ARCH_NAMES", "PORTED_FAMILIES", "get_arch", "get_shape",
-           "check_family"]
+           "check_family", "cells"]
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -52,3 +52,20 @@ def get_arch(name: str, smoke: bool = False) -> ArchConfig:
 
 def get_shape(name: str) -> ShapeSpec:
     return SHAPES[name]
+
+
+def cells(include_skips: bool = False):
+    """All assigned (arch × shape) cells (the reference's dry-run grid).
+
+    ``long_500k`` runs only for sub-quadratic archs (SSM / hybrid); pure
+    full-attention archs are skipped.  Decode shapes run for every arch.
+    """
+    out = []
+    for a in ARCH_NAMES:
+        cfg = get_arch(a)
+        for s, spec in SHAPES.items():
+            skip = (s == "long_500k" and not cfg.sub_quadratic)
+            if skip and not include_skips:
+                continue
+            out.append((a, s, "skip:full-attention" if skip else "run"))
+    return out

@@ -105,9 +105,11 @@ def _index(tree, i: int):
             for k, v in tree.items()}
 
 
-def lm_params_from_reference(tree, cfg):
+def lm_params_from_reference(tree, cfg, mesh=None):
     """The port's :class:`~repro_torch.models.LM` (on the CPU) holding the
-    numbers of a reference parameter tree.
+    numbers of a reference parameter tree; with ``mesh`` its parameters are
+    DTensors placed by :mod:`repro_torch.runtime.sharding` (each rank keeps
+    its own shard of the same tree).
 
     ``tree`` is the reference's ``init_params`` tree with numpy leaves
     (``jax.tree.map(np.asarray, params)``): ``embed``, ``layers`` (stacked
@@ -121,6 +123,9 @@ def lm_params_from_reference(tree, cfg):
     state = _lm_state(tree, cfg)
     model = LM(cfg, dtype=state["embed"].dtype, device="cpu")
     model.load_state_dict(state, strict=True)
+    if mesh is not None:
+        from .runtime.sharding import distribute_lm
+        distribute_lm(model, mesh, cfg)
     return model
 
 
@@ -146,14 +151,18 @@ def _lm_state(tree, cfg) -> dict:
     return {k: _tensor(flat[k]) for k in names}
 
 
-def adamw_state_from_reference(state, cfg):
+def adamw_state_from_reference(state, cfg, mesh=None):
     """The port's :class:`~repro_torch.optim.AdamWState` (on the CPU)
     holding a reference ``AdamWState`` with numpy leaves (``jax.tree.map(
     np.asarray, state)``): the step as an int32 scalar, the moments under
     the parameter names of :func:`lm_params_from_reference`, each leaf
-    keeping its dtype."""
+    keeping its dtype; with ``mesh`` placed as the parameters are."""
     from .optim import AdamWState
-    return AdamWState(step=torch.tensor(int(np.asarray(state.step)),
-                                        dtype=torch.int32),
-                      m=_lm_state(state.m, cfg), v=_lm_state(state.v, cfg))
+    out = AdamWState(step=torch.tensor(int(np.asarray(state.step)),
+                                       dtype=torch.int32),
+                     m=_lm_state(state.m, cfg), v=_lm_state(state.v, cfg))
+    if mesh is None:
+        return out
+    from .runtime.sharding import distribute_adamw, param_shardings
+    return distribute_adamw(out, mesh, param_shardings(cfg, mesh, out.m))
 

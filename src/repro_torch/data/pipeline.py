@@ -7,9 +7,10 @@ the step), and (b) every data-parallel shard draws a disjoint stream.
 
 Counterpart of the reference's ``data/pipeline.py``: ``__call__`` and
 ``batch_shape`` are its host numpy code, so both packages draw the same
-tokens.  Its in-graph variants (``jit_batch``, threefry, and
-``make_batch_specs``, the dry run's shapes) belong to ROADMAP A14; nothing
-on the training path calls them.
+tokens.  :func:`make_batch_specs` gives the dry run one global batch's
+shapes.  The reference's in-graph variant ``jit_batch`` (threefry, for its
+fused train driver) has no counterpart: nothing on the port's training
+path calls it.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["SyntheticTokens"]
+__all__ = ["SyntheticTokens", "make_batch_specs"]
 
 
 @dataclass
@@ -45,3 +46,18 @@ class SyntheticTokens:
                 (self.global_batch, self.vision_tokens, self.d_model)
             ).astype(np.float32)
         return batch
+
+
+def make_batch_specs(cfg, shape) -> dict:
+    """Empty tensors of one global batch — the dry run's ``input_specs``;
+    called under ``FakeTensorMode`` they allocate nothing.  Tokens are
+    int64 (what the port's steps take), vision embeddings bf16 (the
+    reference's spec)."""
+    import torch
+    B, L = shape.global_batch, shape.seq_len
+    dims = (B, L, cfg.n_codebooks) if cfg.n_codebooks else (B, L)
+    batch = {"tokens": torch.empty(dims, dtype=torch.long)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.empty(
+            (B, cfg.vision_tokens, cfg.d_model), dtype=torch.bfloat16)
+    return batch

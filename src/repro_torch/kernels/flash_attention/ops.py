@@ -11,7 +11,12 @@ window leave.  Its source note gives the bound on the card and the designs.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel or raises — there is no fallback.  :func:`flash_attention`
-counts its launches in ``flash_attention.launches``.
+counts its launches in ``flash_attention.launches``.  The launch is bound
+to PyTorch as the custom op ``repro_torch::flash_attention``, whose fake
+registration gives the output's shape without running anything and whose
+FLOP formula is ``4·B·H·Lq·Lkv·d`` (the two products over every (query,
+key) pair, as the reference's dry run counts its blockwise attention): the
+dry run traces the kernel path on fake tensors of any device type.
 
 The kernels are instantiated for the head dims that the source lists
 (``FLASH_HEAD_DIMS``: 16, 32, 64, 128 and 256), which the library reports
@@ -27,6 +32,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from .._build import check, load, refuse_autograd
 from .ref import attention_ref
@@ -121,7 +128,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          ">= 0")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not is_fake(q):
         return attention_ref(q, k, v, causal=causal, window=window or None,
                              q_offset=q_offset)
     refuse_autograd("flash_attention", q, k, v)
@@ -129,8 +136,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"the flash_attention kernel takes float32 or "
                         f"bfloat16 q, k, v of one dtype; got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    return run_padded(_launch, q, k, v, head_dims(), causal=causal,
-                      window=window, q_offset=q_offset)
+    return _flash_op(q, k, v, bool(causal), window, int(q_offset))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int, q_offset: int) -> torch.Tensor:
+    out = run_padded(_launch, q, k, v, head_dims(), causal=causal,
+                     window=window, q_offset=q_offset)
+    # an op's output may not be a view: a padded run's first d columns
+    # are copied out
+    return out if out._base is None else out.clone()
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window, q_offset):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    B, H, Lq, d = q_shape
+    return 4 * B * H * Lq * k_shape[2] * d
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

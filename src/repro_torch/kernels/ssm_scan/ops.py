@@ -20,11 +20,16 @@ gives the design.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel or raises — there is no fallback.  :func:`ssm_scan` counts its
-launches in ``ssm_scan.launches``.
+launches in ``ssm_scan.launches``.  The launch is bound to PyTorch as the
+custom op ``repro_torch::ssm_scan``, whose fake registration gives the
+outputs' shapes without running anything, so the dry run traces the
+kernel path on fake tensors; it has no FLOP formula (the scan does no
+matrix products, and the reference's dry run counts those alone).
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from .._build import check, load, refuse_autograd
 from .ref import ssm_scan_ref, ssm_step_ref
@@ -59,7 +64,7 @@ def ssm_scan(x, dt, A, B, C, D, *, return_final: bool = False):
                          f"B {tuple(B.shape)}, D {tuple(D.shape)} disagree")
     if len({t.device for t in (x, dt, A, B, C, D)}) != 1:
         raise ValueError("ssm_scan operands on more than one device")
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not is_fake(x):
         return ssm_scan_ref(x, dt, A, B, C, D, return_final=return_final)
     refuse_autograd("ssm_scan", x, dt, A, B, C, D)
     if not (x.dtype == dt.dtype == B.dtype == C.dtype) \
@@ -70,6 +75,17 @@ def ssm_scan(x, dt, A, B, C, D, *, return_final: bool = False):
     if A.dtype != torch.float32 or D.dtype != torch.float32:
         raise TypeError(f"the ssm_scan kernel takes float32 A and D; got "
                         f"{A.dtype} and {D.dtype}")
+    y, h = _scan_op(x, dt, A, B, C, D)
+    return (y, h) if return_final else y
+
+
+@torch.library.custom_op("repro_torch::ssm_scan", mutates_args=(),
+                         device_types="cuda")
+def _scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    Bt, L, Dm = x.shape
+    S = A.shape[1]
     # the kernel reads along the contiguous last dims; anything else is
     # copied once here.  The state sizes and batches it takes are known to
     # its launcher alone, which raises through ``check``.
@@ -90,7 +106,14 @@ def ssm_scan(x, dt, A, B, C, D, *, return_final: bool = False):
                     C.stride(1), stream)
         check(lib, rc, f"ssm_scan (Bt={Bt}, state size {S})")
         ssm_scan.launches += 1
-    return (y, h) if return_final else y
+    return y, h
+
+
+@_scan_op.register_fake
+def _(x, dt, A, B, C, D):
+    Bt, L, Dm = x.shape
+    return (x.new_empty((Bt, L, Dm)),
+            x.new_empty((Bt, Dm, A.shape[1]), dtype=torch.float32))
 
 
 ssm_scan.launches = 0

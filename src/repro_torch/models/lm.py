@@ -26,6 +26,16 @@ plain versions, which autograd differentiates, as the reference's
 ``make_train_step`` does by default: the kernels have no backward pass.  The decode state keeps the reference's stacked
 per-layer layout; :func:`decode_step` writes the KV caches in place and
 returns the state with the next position.
+
+On a mesh (:func:`repro_torch.models.hints.set_mesh`, parameters placed by
+:func:`repro_torch.runtime.sharding.distribute_lm`, tokens by
+``distribute_batch``) the same functions run on DTensors: the embedding is
+a vocab-parallel lookup (each model rank looks up the tokens its vocab
+shard holds, one all-reduce), the hidden state is pinned to the batch
+axes at every layer, the output head's FSDP shard is gathered once per
+loss (:func:`gathered_logits_fn`), the decode state is made sharded by
+``decode_state_shardings`` (:func:`init_decode_state` with ``mesh``), and
+the prefill writes each rank's own part of it.
 """
 from __future__ import annotations
 
@@ -34,11 +44,15 @@ from typing import Any, NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
+from ..compat import P, Partial, Replicate, Shard, axis_names, shard_map
 from ..configs import check_family
 from ..device import resolve_device
 from .blocks import block_decode_step, block_forward
+from .hints import (batch_hint, fsdp_gather, hint, is_dt, model_rank,
+                    replicate_like)
 from .layers import cross_entropy_chunked, rms_norm, sinusoidal_positions
 
 __all__ = ["LM", "DecodeState", "init_params", "layer_windows",
@@ -200,15 +214,53 @@ def layer_windows(cfg) -> list[int]:
 
 def embed_tokens(params: LM, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """tokens (B, L) integer — or (B, L, n_cb) for audio — → (B, L, d)."""
-    if cfg.n_codebooks:
+    if is_dt(tokens):
+        x = _embed_mesh(params.embed, tokens, cfg)
+    elif cfg.n_codebooks:
         x = sum(params.embed[c][tokens[..., c]]
                 for c in range(cfg.n_codebooks))
     else:
         x = params.embed[tokens]
     if cfg.pos_embed == "sinusoidal":
         pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-        x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+        x = x + replicate_like(sinusoidal_positions(pos, cfg.d_model), x
+                               ).to(x.dtype)
     return x
+
+
+def _embed_mesh(embed, tokens, cfg):
+    """The vocab-parallel lookup: the table's FSDP shard gathered, each
+    model rank looking up the tokens its vocab shard holds (zeros for the
+    others), and one all-reduce over the model axis."""
+    mesh = tokens.device_mesh
+    names = axis_names(mesh)
+    table = fsdp_gather(embed)
+    vdim = table.ndim - 2
+    split = "model" in names and \
+        table.placements[names.index("model")] == Shard(vdim)
+
+    def body(tab, tok):
+        V_loc = tab.shape[-2]
+        lo = model_rank(mesh) * V_loc if split else 0
+
+        def look(t, c=None):
+            idx = t - lo
+            inr = (idx >= 0) & (idx < V_loc)
+            rows = (tab if c is None else tab[c])[idx.clamp(0, V_loc - 1)]
+            return torch.where(inr[..., None], rows, 0)
+
+        if cfg.n_codebooks:
+            return sum(look(tok[..., c], c) for c in range(cfg.n_codebooks))
+        return look(tok)
+
+    tok_plc = tuple(tokens.placements)
+    out = tuple(Partial() if a == "model" and split else pl
+                for a, pl in zip(names, tok_plc))
+    x = shard_map(body, mesh=mesh, in_specs=(tuple(table.placements),
+                                             tok_plc),
+                  out_specs=out)(table, tokens)
+    return x.redistribute(mesh, [Replicate() if isinstance(pl, Partial)
+                                 else pl for pl in out])
 
 
 def forward_hidden(params: LM, x: torch.Tensor, cfg, positions, *,
@@ -223,6 +275,7 @@ def forward_hidden(params: LM, x: torch.Tensor, cfg, positions, *,
     remat = cfg.remat and torch.is_grad_enabled()
     auxes = []
     for p_l, win in zip(params.layers, layer_windows(cfg)):
+        x = batch_hint(x)       # re-anchor the batch sharding at each layer
         def layer(x, p_l=p_l, win=win):
             x, _, _, aux = block_forward(p_l, x, cfg, positions, win,
                                          use_kernels=use_kernels,
@@ -245,15 +298,19 @@ def compute_logits(params: LM, hidden: torch.Tensor, cfg,
 
 def gathered_logits_fn(params: LM, cfg, codebook: int | None = None):
     """``h ↦ logits`` through the (tied or untied) output head, the
-    ``codebook``-th for audio.  The reference gathers the head's FSDP
-    shard here once per loss; the port holds the whole head on one device,
-    so this is the plain product."""
+    ``codebook``-th for audio, with the head's FSDP d-shard gathered ONCE
+    (on a mesh: the table re-sharded to vocab-over-model up front, so no
+    CE chunk's logits product sums over the data axis; autograd reduces
+    the accumulated gradient back with one reduce-scatter).  On one device
+    this is the plain product."""
     if cfg.tie_embeddings:
         table = params.embed if not cfg.n_codebooks \
             else params.embed[codebook]
+        table = hint(table, P("model", None))
         return lambda h: h @ table.T
     head = params.lm_head if not cfg.n_codebooks \
         else params.lm_head[codebook]
+    head = hint(head, P(None, "model"))
     return lambda h: h @ head
 
 
@@ -316,9 +373,23 @@ class DecodeState(NamedTuple):
 
 def init_decode_state(cfg, batch: int, max_seq: int, *,
                       dtype: torch.dtype | None = None,
-                      device=None) -> DecodeState:
-    dev = resolve_device(device)
+                      device=None, mesh=None) -> DecodeState:
+    """Zero caches and states; with ``mesh`` each leaf a DTensor placed by
+    :func:`repro_torch.runtime.sharding.decode_state_shardings`, each rank
+    allocating its own shard only."""
     dtype = dtype or getattr(torch, cfg.dtype)
+    if mesh is not None:
+        from ..runtime.sharding import decode_state_shardings
+        from torch.distributed.tensor import zeros as dzeros
+        shapes = init_decode_state(cfg, batch, max_seq, dtype=dtype,
+                                   device="meta")
+        plc = decode_state_shardings(cfg, mesh, shapes)
+        return DecodeState(*(
+            () if not isinstance(t, torch.Tensor) else
+            dzeros(t.shape, dtype=t.dtype, device_mesh=mesh, placements=pl)
+            for t, pl in zip(shapes[:4], plc[:4])), 0)
+    dev = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
     L = cfg.n_layers
     kv_k = kv_v = conv = ssm_h = ()
     if cfg.has_attention:
@@ -352,23 +423,79 @@ def prefill(params: LM, tokens: torch.Tensor, cfg,
     S = max_seq or L
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(L, device=x.device)[None].expand(B, L)
-    state = init_decode_state(cfg, B, S, dtype=x.dtype, device=x.device)
+    state = init_decode_state(
+        cfg, B, S, dtype=x.dtype, device=x.device,
+        mesh=tokens.device_mesh if is_dt(tokens) else None)
     for i, (p_l, win) in enumerate(zip(params.layers, layer_windows(cfg))):
+        x = batch_hint(x)
         x, kv, ssm, _ = block_forward(p_l, x, cfg, positions, win,
                                       return_state=cfg.has_ssm,
                                       use_kernels=use_kernels)
         if cfg.has_attention:
             Scap = state.kv_k.shape[3]
             for cache, t in zip((state.kv_k, state.kv_v), kv):
-                if Scap >= L:
+                if is_dt(cache):
+                    _write_cache_mesh(cache, i, t, L)
+                elif Scap >= L:
                     cache[i, :, :, :L] = t
                 else:         # ring cache: slot = absolute pos mod Scap
                     cache[i] = torch.roll(t[:, :, -Scap:], L % Scap, dims=2)
         if cfg.has_ssm:
-            state.conv[i] = ssm[0]
-            state.ssm_h[i] = ssm[1]
+            if is_dt(state.conv):
+                _store_mesh(state.conv, i, ssm[0])
+                _store_mesh(state.ssm_h, i, ssm[1])
+            else:
+                state.conv[i] = ssm[0]
+                state.ssm_h[i] = ssm[1]
     h = rms_norm(x, params.final_norm, cfg.norm_eps)
     return _all_logits(params, h[:, -1:], cfg), state._replace(pos=L)
+
+
+def _layer_spec(buf) -> tuple:
+    """Placements of one layer ``buf[i]`` of a stacked DTensor state
+    leaf."""
+    return tuple(Shard(pl.dim - 1) if isinstance(pl, Shard) else pl
+                 for pl in buf.placements)
+
+
+def _store_mesh(buf, i: int, t) -> None:
+    """``buf[i] = t`` for a stacked DTensor state leaf: ``t`` placed as one
+    layer of ``buf`` and each rank writing its own shard."""
+    def body(b, tl):
+        b[i] = tl
+
+    local_map(body, out_placements=None,
+              in_placements=(tuple(buf.placements), _layer_spec(buf)),
+              device_mesh=buf.device_mesh, redistribute_inputs=True)(buf, t)
+
+
+def _write_cache_mesh(cache, i: int, t, L: int) -> None:
+    """Layer ``i`` of a DTensor KV cache (L, B, Hkv, S, hd) from a prefill's
+    k or v (B, Hkv, L, hd): the first L slots, or the ring buffer's image
+    when the cache holds fewer; a cache split over its slots takes ``t``
+    whole on every model rank and keeps its own slots."""
+    mesh = cache.device_mesh
+    names = axis_names(mesh)
+    Scap = cache.shape[3]
+    by_seq = "model" in names and \
+        cache.placements[names.index("model")] == Shard(3)
+    t_plc = tuple(Replicate() if isinstance(pl, Shard) and pl.dim == 2
+                  else pl for pl in _layer_spec(cache))
+
+    def body(c, tl):
+        S_loc = c.shape[3]
+        lo = model_rank(mesh) * S_loc if by_seq else 0
+        if Scap >= L:
+            a, b = max(lo, 0), min(lo + S_loc, L)
+            if a < b:
+                c[i, :, :, a - lo:b - lo] = tl[:, :, a:b]
+        else:         # ring cache: slot = absolute pos mod Scap
+            img = torch.roll(tl[:, :, -Scap:], L % Scap, dims=2)
+            c[i] = img[:, :, lo:lo + S_loc]
+
+    local_map(body, out_placements=None,
+              in_placements=(tuple(cache.placements), t_plc),
+              device_mesh=mesh, redistribute_inputs=True)(cache, t)
 
 
 def decode_step(params: LM, tokens: torch.Tensor, state: DecodeState, cfg):
@@ -385,8 +512,10 @@ def decode_step(params: LM, tokens: torch.Tensor, state: DecodeState, cfg):
     if cfg.pos_embed == "sinusoidal":
         # embed_tokens added position 0; replace with the true position
         zero = torch.zeros((1, 1), dtype=torch.long, device=x.device)
-        x = x - sinusoidal_positions(zero, cfg.d_model).to(x.dtype)
-        x = x + sinusoidal_positions(zero + pos, cfg.d_model).to(x.dtype)
+        x = x - replicate_like(sinusoidal_positions(zero, cfg.d_model),
+                               x).to(x.dtype)
+        x = x + replicate_like(sinusoidal_positions(zero + pos, cfg.d_model),
+                               x).to(x.dtype)
     has_kv, has_ssm = cfg.has_attention, cfg.has_ssm
     ring = bool(has_kv and cfg.sliding_window and not cfg.global_attn_layers
                 and state.kv_k.shape[3] <= cfg.sliding_window)

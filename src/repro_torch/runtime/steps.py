@@ -10,6 +10,14 @@ reference's ``make_train_step`` does by default (``use_pallas=False``):
 the hand-written kernels have no backward pass, and the reference's Pallas
 kernels do not differentiate either, even in interpret mode (ROADMAP), so
 the port's train step has no kernel switch.
+
+On a mesh (:func:`repro_torch.models.hints.set_mesh`) the steps take and
+return DTensor parameters, optimizer state and decode state with the
+placements of :mod:`repro_torch.runtime.sharding` (those the reference's
+dry run lowers with: ``param_shardings``, ``opt_state_shardings``,
+``decode_state_shardings``); a global batch given as numpy or a plain
+tensor is split by ``batch_shardings`` first.  The logits come back as
+DTensors (vocab over the model axis); ``.full_tensor()`` gathers them.
 """
 from __future__ import annotations
 
@@ -17,9 +25,11 @@ import functools
 
 import torch
 
+from ..compat import DTensor
 from ..configs import check_family
 from ..device import resolve_device
 from ..models import lm
+from ..models.hints import get_mesh
 from ..optim.adamw import (adamw_update, clip_by_global_norm,
                            cosine_schedule, wsd_schedule)
 
@@ -31,7 +41,23 @@ def _on(dev: torch.device, params, tokens) -> torch.Tensor:
     if params.embed.device.type != dev.type:
         raise ValueError(f"parameters on {params.embed.device}, step made "
                          f"for {dev}")
-    return torch.as_tensor(tokens, dtype=torch.long, device=params.embed.device)
+    if isinstance(tokens, DTensor):
+        return tokens
+    t = torch.as_tensor(tokens, dtype=torch.long, device=params.embed.device)
+    return _sharded(params, {"tokens": t})["tokens"]
+
+
+def _sharded(params, batch: dict) -> dict:
+    """A global batch split by ``batch_shardings`` when the parameters are
+    DTensors (a mesh is registered), else as it is."""
+    if not isinstance(params.embed, DTensor):
+        return batch
+    from .sharding import distribute_batch
+    mesh = get_mesh()
+    if mesh is None:
+        raise ValueError("DTensor parameters with no mesh registered "
+                         "(models.hints.set_mesh)")
+    return distribute_batch(params.cfg, mesh, batch)
 
 
 def make_schedule(cfg, *, peak_lr=3e-4, warmup=100, total=10_000):
@@ -73,9 +99,13 @@ def make_train_step(cfg, schedule=None, *, max_grad_norm: float = 1.0,
     def train_step(params, opt_state, batch, step):
         inputs = {"tokens": _on(dev, params, batch["tokens"])}
         for key in ("vision_embeds", "coded_weights"):
-            if batch.get(key) is not None:
-                inputs[key] = torch.as_tensor(batch[key], dtype=torch.float32,
-                                              device=dev)
+            if batch.get(key) is not None and isinstance(batch[key],
+                                                         DTensor):
+                inputs[key] = batch[key].to(torch.float32)
+            elif batch.get(key) is not None:
+                inputs[key] = _sharded(params, {key: torch.as_tensor(
+                    batch[key], dtype=torch.float32,
+                    device=params.embed.device)})[key]
         named = dict(params.named_parameters())
         decay = decayed_names(named, cfg)
         try:

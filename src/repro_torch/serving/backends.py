@@ -335,7 +335,7 @@ class TorchDeviceBackend(ExecutionBackend):
             return torch.as_tensor(x).to(torch.float32).to(self.device)
 
         return distributed_coded_matmul(put(E_A), put(E_B),
-                                        put(np.asarray(weights)), group)
+                                        put(np.asarray(weights)), group=group)
 
 
 def _make_cluster(**kw):

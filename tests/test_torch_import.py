@@ -25,7 +25,11 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.kernels",
            "repro_torch.analysis", "repro_torch.analysis.attribution",
            "repro_torch.runtime.coded", "repro_torch.optim",
            "repro_torch.data", "repro_torch.checkpoint",
-           "repro_torch.launch.train"]
+           "repro_torch.launch.train", "repro_torch.compat",
+           "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+           "repro_torch.models.hints", "repro_torch.runtime.sharding",
+           "repro_torch.analysis.roofline", "repro_torch.analysis.op_walk",
+           "repro_torch.analysis.report", "repro_torch.data.pipeline"]
 
 
 def test_port_import_loads_no_jax_and_no_reference():
@@ -42,7 +46,8 @@ def test_port_import_loads_no_jax_and_no_reference():
     assert not bad, bad
     assert "repro_torch.serving.master" in mods
     assert "repro_torch.models.lm" in mods
-    for m in ("repro_torch.design.policy", "repro_torch.design.pareto",
+    for m in ("repro_torch.launch.dryrun", "repro_torch.runtime.sharding",
+              "repro_torch.design.policy", "repro_torch.design.pareto",
               "repro_torch.design.state", "repro_torch.obs.exporter",
               "repro_torch.obs.slo", "repro_torch.serving.cache",
               "repro_torch.cluster.backend", "repro_torch.cluster.pool"):
