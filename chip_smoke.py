@@ -146,7 +146,9 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
     a process of its own, then resumed here from its step-25 checkpoint:
     losses within 1e-6 of the uninterrupted run, bit-identity reported;
     (c) repro-10m (float32) trained 3 steps on the card and on the CPU
-    from the same weights, loss and grad norm within 1e-4 relative.
+    from the same weights, loss and grad norm within 1e-4 relative.  The
+    train steps run flash attention's backward kernel (one launch a layer
+    a step, counted).
 16. The device mesh (run after 14): (a) qwen2-moe-a2.7b at full width
     and depth, phase 9b's 4 x 8192 prefill unsharded and then with the same
     weights placed (in place) on a one-rank NCCL mesh, through the mesh
@@ -174,7 +176,26 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
     the served qwen2-moe prefill's per-device peak on a 1 x 1 mesh beside
     (a)'s measured peak (failing if below the weights and KV cache
     allocated), and kimi-k2-1t-a32b's cells on 16 x 16 H100s printed.
-    The four ranks' times measure nothing.
+    The four ranks' times measure nothing.  Its train steps run the
+    kernels' backward kernels inside the ``local_map`` bodies.
+17. Training through the kernels (run after 16): (a) under autograd the
+    backward kernels of flash attention (the forward sweep's shapes,
+    float32 and bf16, causal, window 8 and non-causal window 24) and of
+    the scan (its sweep, then hymba's and falcon-mamba-7b's channels at 1
+    x 2048) against their plain backward and autograd of the plain
+    forward (relative Frobenius 1e-4 float32, 2e-2 bf16), then each timed
+    at hymba's training shapes (8 x 4096; flash windowed and full causal,
+    beside the SDPA backward) with its bound and plain time; (b)
+    hymba-1.5b at full width, 2 layers (global, windowed), 1 x 4096: loss
+    and every parameter's gradient with the kernels against the plain
+    path (5e-2), and each of the 32 layers' own gradients on the plain
+    forward's input at 1 x 1088 (5e-2); (c) a repeat of the first step's
+    loss and gradients bit-identical; (d) hymba-1.5b trained at 32 layers
+    x 8 x 4096 in bf16 (train_4k's global batch 256 cut to 8): a warm-up
+    step and 4 timed steps (step ms, tokens/s, peak memory, launches a
+    step: 64 flash and 64 scan forwards with the remat, 32 of each
+    backward), a profiled step (device busy share), finite losses that
+    fall.
 15. Print the card's name and power limit, one ``{"kernels": [...]}`` line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -605,13 +626,10 @@ def phase_poly_encode(dev, gen) -> dict:
 
 
 def _flash_pairs(Lq: int, Lkv: int, q_offset: int, window: int) -> int:
-    """Unmasked (query, key) pairs of one causal head."""
-    total = 0
-    for i in range(Lq):
-        hi = min(Lkv - 1, q_offset + i)
-        lo = max(0, q_offset + i - window + 1) if window else 0
-        total += max(0, hi - lo + 1)
-    return total
+    """Unmasked (query, key) pairs of one causal head (the wrapper's count,
+    which its backward's FLOP formula reads)."""
+    from repro_torch.kernels.flash_attention.ops import unmasked_pairs
+    return unmasked_pairs(Lq, Lkv, True, window, q_offset)
 
 
 def _sdpa(q, k, v, window: int):
@@ -756,14 +774,7 @@ def phase_scan(dev, gen) -> dict:
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
     def inputs(Bt, L, Dm, S, tdt):
-        x = torch.randn(Bt, L, Dm, device=dev, generator=gen).to(tdt)
-        dt = (0.01 + 0.19 * torch.rand(Bt, L, Dm, device=dev,
-                                       generator=gen)).to(tdt)
-        A = -(0.1 + 0.9 * torch.rand(Dm, S, device=dev, generator=gen))
-        xp = torch.randn(Bt, L, 100 + 2 * S, device=dev,
-                         generator=gen).to(tdt)
-        D = torch.randn(Dm, device=dev, generator=gen)
-        return x, dt, A, xp[..., 100:100 + S], xp[..., 100 + S:], D
+        return _scan_args(dev, gen, Bt, L, Dm, S, tdt, grad=False)
 
     for shape in SCAN_SWEEP:
         for dt in ("float32", "bfloat16"):
@@ -2966,9 +2977,13 @@ def _timed_steps(cfg, params, opt, coded_w, first: int, n: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bwd)
     from repro_torch.runtime.steps import make_train_step
     step_fn = make_train_step(cfg, device="cuda")
     gen = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    torch.cuda.synchronize()
+    before = (flash_attention.launches, flash_attention_bwd.launches)
     times = []
     for s in range(first, first + n + 1):
         batch = {"tokens": torch.as_tensor(gen(s)["tokens"],
@@ -2991,6 +3006,13 @@ def _timed_steps(cfg, params, opt, coded_w, first: int, n: int = 5) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     ms = sum(times) / len(times)
+    # the n timed steps and the profiled one: the flash kernel's forward
+    # (with the remat recompute) and backward launches
+    flash = {"flash_attention": flash_attention.launches - before[0],
+             "flash_attention_bwd": flash_attention_bwd.launches - before[1]}
+    if flash["flash_attention_bwd"] != (n + 1) * cfg.n_layers:
+        fail(f"{cfg.name} train steps: {flash} flash launches in {n + 1} "
+             f"steps, expected {cfg.n_layers} backward launches a step")
     launches = sum(e.count for e in prof.key_averages()
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
     rows = _device_rows(prof, wall_ms, f"breakdown ({cfg.name} train step, "
@@ -2998,6 +3020,7 @@ def _timed_steps(cfg, params, opt, coded_w, first: int, n: int = 5) -> dict:
                         f"profiled; {launches} kernel launches)")
     return {"step_ms": ms, "step_ms_each": times,
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+            "flash_launches": flash,
             "breakdown": dict(rows, launch_calls=launches)}
 
 
@@ -4065,6 +4088,525 @@ def phase_mesh(dev, pair) -> dict:
 
 
 
+# ------------------------------------------- phase 17: training through kernels
+
+# hymba-1.5b trains at its published widths and all 32 layers, bf16, seeded
+# random weights, on train_4k's sequence with its global batch of 256 cut to
+# 8 for one card: a warm-up step, TK_STEPS timed steps, a profiled one.
+TK_ARCH, TK_BATCH, TK_SEQ, TK_STEPS = "hymba-1.5b", 8, 4096, 4
+# the 2-layer cut (one global, one windowed layer) the plain path can hold,
+# and the length of each layer's own gradient check at full depth: past
+# the 1024 window, so that it masks keys in the windowed layers (the plain
+# scan's time loop, forward and autograd, runs once a layer: 79 s for the
+# 32 layers at 1 x 2048 on the card)
+TK_CUT_SEQ, TK_LAYER_SEQ = 4096, 1088
+# relative Frobenius error of each gradient of a backward kernel against
+# the plain backward on the same inputs, and against autograd of the plain
+# forward: float32 kernels compute the same float32 formulas in another
+# order; the bf16 ones round P and dS (flash) to bf16 for the second
+# products and every gradient to bf16.  The norm it is relative to is at
+# least BWD_RMS_FLOOR an element: a gradient that cancels to ~0 (dq of a
+# query that sees one key) has no relative error to speak of; the sweeps'
+# inputs are N(0, 1) and their gradients O(0.1) an element.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+BWD_RMS_FLOOR = 1e-2
+# hymba in bf16, kernels vs plain: the loss (relative) and each parameter's
+# gradient (relative Frobenius) on the 2-layer cut, and each layer's own
+# input and parameter gradients at full depth: the repo's bf16 tolerance
+# (phases 8 and 9b hold the served logits to it)
+TK_GRAD_TOL = 5e-2
+FLASH_BWD_MASKS = ((True, 0), (True, 8), (False, 24))
+
+
+def _rel(got, want) -> float:
+    """Relative Frobenius error; the absolute norm where ``want`` is 0."""
+    g, w = got.detach().float(), want.detach().float()
+    den = float(torch.linalg.vector_norm(w))
+    return float(torch.linalg.vector_norm(g - w)) / (den if den else 1.0)
+
+
+def _check_grads(got, want, tol: float, what: str) -> float:
+    worst = 0.0
+    for name, g, w in zip("0123456789", got, want):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            fail(f"{what}: gradient {name} {tuple(g.shape)} vs "
+                 f"{tuple(w.shape)}, or not finite")
+        diff = (g.detach().float() - w.detach().float()).norm()
+        e = float(diff / max(float(w.detach().float().norm()),
+                             BWD_RMS_FLOOR * w.numel() ** 0.5))
+        worst = max(worst, e)
+        if not e <= tol:                  # a NaN fails too
+            fail(f"{what}: gradient {name} relative Frobenius error "
+                 f"{e:.3e} (limit {tol})")
+    return worst
+
+
+def _flash_bwd_sweep(dev, gen) -> dict:
+    """(a) flash: under autograd the kernel's backward against the plain
+    backward and autograd of the plain forward (float32), over the forward
+    sweep's shapes, causal, window 8 and non-causal window 24."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref, flash_attention_bwd_ref, flash_attention_lse_ref)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for B, H, Hkv, Lq, Lkv, d in FLASH_SWEEP:
+        for dt in ("float32", "bfloat16"):
+            tdt = getattr(torch, dt)
+            leaves = [torch.randn(B, n, L, d, device=dev, generator=gen)
+                      .to(tdt).requires_grad_(True)
+                      for n, L in ((H, Lq), (Hkv, Lkv), (Hkv, Lkv))]
+            plain = [t.detach() for t in leaves]
+            for causal, window in FLASH_BWD_MASKS:
+                off = max(0, Lkv - Lq)
+                kw = {"causal": causal, "window": window, "q_offset": off}
+                what = f"flash bwd {dt} {(B, H, Hkv, Lq, Lkv, d)} {kw}"
+                n0 = flash_attention_bwd.launches
+                out = flash_attention(*leaves, **kw)
+                do = torch.randn(out.shape, device=dev, generator=gen).to(tdt)
+                got = torch.autograd.grad(out, leaves, do)
+                if flash_attention_bwd.launches != n0 + 1:
+                    fail(f"{what}: no backward launch")
+                o, lse = flash_attention_lse_ref(*plain, **kw)
+                want = flash_attention_bwd_ref(*plain, o, lse, do, **kw)
+                worst[dt] = max(worst[dt], _check_grads(got, want,
+                                                        BWD_TOL[dt], what))
+                qpos = off + torch.arange(Lq, device=dev)[:, None]
+                kpos = torch.arange(Lkv, device=dev)[None]
+                seen = ((qpos >= kpos) | (not causal)) & (
+                    (qpos - kpos < window) | (window == 0))
+                if bool(seen.any(-1).all()):   # autograd of the plain
+                    f32 = [t.float().requires_grad_(True) for t in plain]
+                    ref = attention_ref(*f32, causal=causal,
+                                        window=window or None, q_offset=off)
+                    want = torch.autograd.grad(ref, f32, do.float())
+                    _check_grads(got, [w.to(tdt) for w in want],
+                                 BWD_TOL[dt], what + " vs autograd")
+    log(f"flash_attention backward: {len(FLASH_SWEEP)} sweep shapes x "
+        f"(float32, bfloat16) x (causal, window 8, non-causal window 24) "
+        f"agree with the plain backward and autograd of the plain forward; "
+        f"worst relative Frobenius error float32 {worst['float32']:.2e}, "
+        f"bf16 {worst['bfloat16']:.2e} (limits {BWD_TOL})")
+    return worst
+
+
+def _scan_args(dev, gen, Bt, L, Dm, S, tdt, grad: bool):
+    """x, dt, A, B, C, D as the scan's phases draw them; B and C column
+    views of one projection; with ``grad`` the leaves require grad."""
+    x = torch.randn(Bt, L, Dm, device=dev, generator=gen).to(tdt)
+    dt = (0.01 + 0.19 * torch.rand(Bt, L, Dm, device=dev,
+                                   generator=gen)).to(tdt)
+    A = -(0.1 + 0.9 * torch.rand(Dm, S, device=dev, generator=gen))
+    xp = torch.randn(Bt, L, 100 + 2 * S, device=dev, generator=gen).to(tdt)
+    D = torch.randn(Dm, device=dev, generator=gen)
+    for t in (x, dt, A, xp, D):
+        t.requires_grad_(grad)
+    return x, dt, A, xp[..., 100:100 + S], xp[..., 100 + S:], D
+
+
+def _scan_bwd_sweep(dev, gen) -> dict:
+    """(a) the scan: under autograd the kernel's backward against the plain
+    backward and autograd of the plain forward (float32), over the forward
+    sweep, then hymba's and falcon-mamba-7b's channels at 1 x 2048."""
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_bwd
+    from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_ref,
+                                                  ssm_scan_fwd_ref,
+                                                  ssm_scan_ref)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(s, dt) for s in SCAN_SWEEP for dt in ("float32", "bfloat16")]
+    cases += [((1, 2048, 3200, 16), "bfloat16"),
+              ((1, 2048, FALCON_D_INNER, 16), "bfloat16")]
+    for shape, dt in cases:
+        tdt = getattr(torch, dt)
+        args = _scan_args(dev, gen, *shape, tdt, grad=True)
+        what = f"ssm_scan bwd {dt} {shape}"
+        n0 = ssm_scan_bwd.launches
+        y = ssm_scan(*args)
+        dy = torch.randn(y.shape, device=dev, generator=gen).to(tdt)
+        got = torch.autograd.grad(y, args, dy)
+        if ssm_scan_bwd.launches != n0 + 1:
+            fail(f"{what}: no backward launch")
+        plain = [t.detach() for t in args]
+        _, _, ckpt = ssm_scan_fwd_ref(*plain)
+        want = ssm_scan_bwd_ref(*plain, dy, ckpt)
+        worst[dt] = max(worst[dt], _check_grads(got, want, BWD_TOL[dt],
+                                                what))
+        f32 = [t.float().requires_grad_(True) for t in plain]
+        want = torch.autograd.grad(ssm_scan_ref(*f32), f32, dy.float())
+        _check_grads(got, [w.to(g.dtype) for g, w in zip(got, want)],
+                     BWD_TOL[dt], what + " vs autograd")
+        del args, y, got, want, f32
+    torch.cuda.empty_cache()
+    log(f"ssm_scan backward: the sweep (float32, bfloat16) and 1 x 2048 at "
+        f"Dm 3200 and {FALCON_D_INNER} (bf16) agree with the plain backward "
+        f"and autograd of the plain forward; worst relative Frobenius error "
+        f"float32 {worst['float32']:.2e}, bf16 {worst['bfloat16']:.2e} "
+        f"(limits {BWD_TOL})")
+    return worst
+
+
+def _flash_bwd_timed(dev, gen) -> dict:
+    """The flash backward at hymba's training shapes (8 x 25/5 x 4096 x 64,
+    bf16; window 1024 and full causal): kernel, plain (batch row by row,
+    each row held to BWD_TOL), the SDPA backward, and the bound."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_bwd,
+                                                         flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref)
+    B, H, Hkv, L, d = TK_BATCH, 25, 5, TK_SEQ, 64
+    q, k, v = (torch.randn(B, n, L, d, device=dev, generator=gen)
+               .to(torch.bfloat16) for n in (H, Hkv, Hkv))
+    do = torch.randn(B, H, L, d, device=dev, generator=gen).to(torch.bfloat16)
+    out = {}
+    for window in (1024, 0):
+        o, lse = flash_attention_fwd(q, k, v, window=window)
+        got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+        err = mae = 0.0
+        for b in range(B):
+            sl = [t[b:b + 1] for t in (q, k, v)]
+            o_r, lse_r = flash_attention_lse_ref(*sl, window=window or None)
+            want = flash_attention_bwd_ref(*sl, o_r, lse_r, do[b:b + 1],
+                                           window=window)
+            mine = [g[b:b + 1] for g in got]
+            err = max(err, _check_grads(mine, want, BWD_TOL["bfloat16"],
+                                        f"flash bwd hymba b={b} "
+                                        f"window={window}"))
+            mae = max([mae] + [float((g.float() - w.float()).abs().max())
+                               for g, w in zip(mine, want)])
+            del want, o_r, lse_r
+        pairs = B * H * _flash_pairs(L, L, 0, window)
+        flops = 10.0 * d * pairs
+        # q, o, dO read and dq written (B H L d each), k, v read and dk, dv
+        # written (B Hkv L d each), in bf16; the float32 LSE read
+        nbytes = 2 * (4 * B * H * L * d + 4 * B * Hkv * L * d) + 4 * B * H * L
+        b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref_out = _sdpa(*leaves, window)()
+        row = {"shape": [B, H, Hkv, L, d], "dtype": "bfloat16",
+               "window": window, "unmasked_pairs": pairs, "flops": flops,
+               "rel_fro": err, "max_abs_err": mae,
+               "ms": time_ms(lambda: flash_attention_bwd(
+                   q, k, v, o, lse, do, window=window), 5),
+               "plain_ms": time_ms(lambda: [flash_attention_bwd_ref(
+                   q[b:b + 1], k[b:b + 1], v[b:b + 1], o[b:b + 1],
+                   lse[b:b + 1], do[b:b + 1], window=window)
+                   for b in range(B)], 1),
+               "library_ms": time_ms(lambda: torch.autograd.grad(
+                   ref_out, leaves, do, retain_graph=True), 5),
+               "bound_ms": b_ms, "bound_by": b_by}
+        row["tflops"] = flops / row["ms"] / 1e9
+        out[f"window{window}" if window else "causal"] = row
+        log(f"flash backward hymba train {B}x{H}/{Hkv}x{L}x{d} bf16 "
+            f"{'window ' + str(window) if window else 'full causal'}: kernel "
+            f"{row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s at 10 d a "
+            f"pair), plain {row['plain_ms']:.1f} ms ({B} batch rows), SDPA "
+            f"backward {row['library_ms']:.3f} ms, bound {b_ms:.3f} ms "
+            f"({b_by}); vs plain: relative Frobenius {err:.2e} per batch row "
+            f"(limit {BWD_TOL['bfloat16']}) ({CARD})")
+        del o, lse, got, leaves, ref_out
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return out
+
+
+def _scan_bwd_bound(Bt, L, Dm, S, elem=2) -> dict:
+    """The scan backward's bound: one exp per (t, channel, state) (a_t, the
+    least the gradient needs) against its bytes (x, dt, dy, B, C and the
+    checkpoints read; dx, ddt, dB, dC written; A, D, dA, dD)."""
+    nbytes = elem * (5 * Bt * L * Dm + 4 * Bt * L * S) + 4 * (
+        Bt * -(-L // 256) * Dm * S + 2 * Dm * S + 2 * Dm)
+    exps = Bt * L * Dm * S
+    sms, clock = sm_count_and_max_clock()
+    t_exp = exps / (SFU_PER_SM_CLOCK * sms * clock) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    b_ms, b_by = (t_exp, "operations") if t_exp >= t_bytes else \
+        (t_bytes, "bytes")
+    return {"bytes": nbytes, "exps": exps, "exp_bound_ms": t_exp,
+            "byte_bound_ms": t_bytes, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _scan_bwd_timed(dev, gen) -> dict:
+    """The scan backward at hymba's training shape (8 x 4096 x 3200 x 16,
+    bf16, B and C strided): kernel, plain (held to BWD_TOL), bound."""
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_bwd, ssm_scan_fwd
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+    Bt, L, Dm, S = TK_BATCH, TK_SEQ, 3200, 16
+    args = _scan_args(dev, gen, Bt, L, Dm, S, torch.bfloat16, grad=False)
+    _, _, ckpt = ssm_scan_fwd(*args)
+    dy = torch.randn(Bt, L, Dm, device=dev, generator=gen).to(torch.bfloat16)
+    got = ssm_scan_bwd(*args, dy, ckpt)
+    t0 = time.perf_counter()
+    want = ssm_scan_bwd_ref(*args, dy, ckpt)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _check_grads(got, want, BWD_TOL["bfloat16"], "ssm_scan bwd hymba")
+    mae = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    del want
+    bound = _scan_bwd_bound(Bt, L, Dm, S)
+    row = {"shape": [Bt, L, Dm, S], "dtype": "bfloat16", "rel_fro": err,
+           "max_abs_err": mae, **bound,
+           "ms": time_ms(lambda: ssm_scan_bwd(*args, dy, ckpt), 5),
+           "plain_ms": plain_ms, "library_ms": None}
+    log(f"ssm_scan backward hymba train {Bt}x{L}x{Dm}x{S} bf16: kernel "
+        f"{row['ms']:.3f} ms, plain {plain_ms:.1f} ms (host clock, one "
+        f"call), library none, bound {bound['bound_ms']:.3f} ms "
+        f"({bound['bound_by']}; {bound['exps']:.3g} exps "
+        f"{bound['exp_bound_ms']:.3f} ms, bytes {bound['byte_bound_ms']:.3f}"
+        f" ms); vs plain: relative Frobenius {err:.2e} (limit "
+        f"{BWD_TOL['bfloat16']}), max abs err {mae:.3e} ({CARD})")
+    del args, ckpt, dy, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def _loss_and_grads(model, cfg, batch, use_kernels: bool = True):
+    """``lm_loss`` and the gradient of every parameter, by name."""
+    from repro_torch.models import lm_loss
+    named = dict(model.named_parameters())
+    try:
+        for p in named.values():
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            loss = lm_loss(model, batch, cfg, use_kernels=use_kernels)
+            grads = torch.autograd.grad(loss, list(named.values()))
+    finally:
+        for p in named.values():
+            p.requires_grad_(False)
+    return loss.detach(), dict(zip(named, grads))
+
+
+def _tokens(cfg, B: int, L: int, seed: int, dev) -> torch.Tensor:
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, L), device=dev, generator=g)
+
+
+def _cut_vs_plain(dev) -> dict:
+    """(b) hymba at full width, 2 layers (one global, one windowed), 1 x
+    TK_CUT_SEQ: the loss and every parameter's gradient with the kernels
+    against the plain path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    # no per-layer recompute: the same numbers, a third less of the plain
+    # scan's loop
+    cfg = get_arch(TK_ARCH).replace(n_layers=2, global_attn_layers=(0,),
+                                    remat=False)
+    model = init_params(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(17))
+    batch = {"tokens": _tokens(cfg, 1, TK_CUT_SEQ, 18, dev)}
+    lk, gk = _loss_and_grads(model, cfg, batch)
+    lp, gp = _loss_and_grads(model, cfg, batch, use_kernels=False)
+    loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
+    errs = {k: _rel(gk[k], gp[k]) for k in gk}
+    worst = max(errs, key=errs.get)
+    if not (loss_err <= TK_GRAD_TOL and all(e <= TK_GRAD_TOL
+                                            for e in errs.values())):
+        fail(f"{cfg.name} 2 layers x 1 x {TK_CUT_SEQ}, kernels vs plain: "
+             f"loss {float(lk):.6f} vs {float(lp):.6f}, worst gradient "
+             f"{worst} {errs[worst]:.3e} (limit {TK_GRAD_TOL})")
+    log(f"{cfg.name} 2 layers (global, window {cfg.sliding_window}) x 1 x "
+        f"{TK_CUT_SEQ} {cfg.dtype}, kernels vs plain: loss {float(lk):.6f} vs "
+        f"{float(lp):.6f} (relative {loss_err:.2e}), worst of "
+        f"{len(errs)} parameter gradients {worst} {errs[worst]:.2e} (limit "
+        f"{TK_GRAD_TOL})")
+    del model, gk, gp
+    torch.cuda.empty_cache()
+    return {"loss_kernels": float(lk), "loss_plain": float(lp),
+            "loss_rel_err": loss_err, "grad_rel_fro": errs,
+            "worst_param": worst}
+
+
+def _layer_grad_errors(cfg, model, dev) -> list:
+    """(b) each of the 32 layers on the plain forward's input to it (1 x
+    TK_LAYER_SEQ), its input and parameter gradients for one seeded output
+    gradient, with the kernels against the plain versions: one layer's
+    own backward error at every depth."""
+    from repro_torch.models.blocks import block_forward
+    from repro_torch.models.lm import embed_tokens, layer_windows
+    tokens = _tokens(cfg, 1, TK_LAYER_SEQ, 19, dev)
+    L = tokens.shape[1]
+    pos = torch.arange(L, device=dev)[None]
+    wins = layer_windows(cfg)
+    g = torch.Generator(device=dev).manual_seed(20)
+    dy = torch.randn(1, L, cfg.d_model, device=dev, generator=g).to(
+        model.embed.dtype)
+    with torch.no_grad():
+        xs = [embed_tokens(model, tokens, cfg)]
+        for i in range(cfg.n_layers - 1):
+            xs.append(block_forward(model.layers[i], xs[-1], cfg, pos,
+                                    wins[i], use_kernels=False)[0])
+    out = []
+    for i in range(cfg.n_layers):
+        layer = model.layers[i]
+        params = list(layer.parameters())
+        grads = []
+        for use_kernels in (True, False):
+            x = xs[i].clone().requires_grad_(True)
+            try:
+                for p in params:
+                    p.requires_grad_(True)
+                with torch.enable_grad():
+                    y = block_forward(layer, x, cfg, pos, wins[i],
+                                      use_kernels=use_kernels)[0]
+                    grads.append(torch.autograd.grad(y, [x] + params, dy))
+            finally:
+                for p in params:
+                    p.requires_grad_(False)
+        out.append(max(_rel(a, b) for a, b in zip(*grads)))
+        del grads
+    if not all(e <= TK_GRAD_TOL for e in out):
+        fail(f"{cfg.name} layers' own gradients, kernels vs plain: "
+             f"{['%.2e' % e for e in out]} (limit {TK_GRAD_TOL})")
+    log(f"{cfg.name} each layer's own gradients (input and parameters) on "
+        f"the plain forward's input, 1 x {L}, kernels vs plain: worst "
+        f"relative Frobenius by layer {['%.1e' % e for e in out]} (limit "
+        f"{TK_GRAD_TOL}; windowed and global layers alike)")
+    return out
+
+
+def _train_full(dev) -> dict:
+    """(c) a repeat of the first step's loss and gradients bit-identical;
+    then the training run: a warm-up step, TK_STEPS timed steps with the
+    launch counts and the peak memory, a profiled step; (d) finite losses
+    that fall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bwd)
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan, ssm_scan_bwd
+    from repro_torch.launch.train import build_state
+    from repro_torch.runtime.steps import make_schedule, make_train_step
+    cfg = get_arch(TK_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = build_state(cfg, 0, device=dev)
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    moments = sum(t.numel() * t.element_size()
+                  for t in list(opt.m.values()) + list(opt.v.values()))
+    t0 = time.perf_counter()
+    layer_errs = _layer_grad_errors(cfg, params, dev)
+    log(f"  (each layer's own gradients: {time.perf_counter() - t0:.1f} s)")
+    data = SyntheticTokens(cfg.vocab_size, TK_SEQ, TK_BATCH, seed=0)
+
+    def batch(step):
+        return {"tokens": torch.as_tensor(data(step)["tokens"],
+                                          dtype=torch.long, device=dev)}
+    # (c) the first step's loss and gradients twice from the same state
+    l1, g1 = _loss_and_grads(params, cfg, batch(0))
+    l2, g2 = _loss_and_grads(params, cfg, batch(0))
+    same = bool(torch.equal(l1, l2)) and all(torch.equal(g1[k], g2[k])
+                                             for k in g1)
+    if not same:
+        diff = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+        fail(f"{cfg.name}: a repeat of the first step differs: loss "
+             f"{float(l1)!r} vs {float(l2)!r}, {len(diff)} gradients "
+             f"(first {diff[:3]})")
+    log(f"{cfg.name} {TK_BATCH} x {TK_SEQ}: a repeat of the first step's "
+        f"loss and {len(g1)} gradients from the same state is bit-identical")
+    del g1, g2
+    torch.cuda.empty_cache()
+    # every step trains on the first batch: uniform random tokens leave
+    # nothing to learn past ln(vocab), which the seeded model starts within
+    # 0.05 of, while one batch can be fitted; a short warm-up of a
+    # learning rate small enough that each AdamW step, which moves every
+    # weight by about the rate, is a descent step
+    step_fn = make_train_step(cfg, make_schedule(cfg, peak_lr=3e-5,
+                                                 warmup=1,
+                                                 total=10 * TK_STEPS),
+                              device=dev)
+    losses = []
+    params, opt, m = step_fn(params, opt, batch(0), 0)        # warm-up
+    losses.append(float(m["loss"]))
+    kernels = (flash_attention, ssm_scan, flash_attention_bwd, ssm_scan_bwd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    times = []
+    b = batch(0)
+    for step in range(1, TK_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b, step)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.__name__: k.launches for k in kernels}
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "ssm_scan": 2 * cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers,
+                "ssm_scan_bwd": cfg.n_layers}
+    if launches != {k: TK_STEPS * v for k, v in per_step.items()}:
+        fail(f"{cfg.name} train steps: launches {launches} in {TK_STEPS} "
+             f"steps, expected {per_step} a step (forward and the remat "
+             f"recompute, then the backward)")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b, TK_STEPS + 1)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof, wall_ms, f"breakdown ({cfg.name} train step "
+                        f"{TK_BATCH} x {TK_SEQ}, profiled)")
+    busy = rows.get("busy_ms")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"{cfg.name} training losses {losses}: not finite, or not "
+             "falling")
+    ms = sum(times) / len(times)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TK_BATCH,
+           "seq": TK_SEQ, "dtype": cfg.dtype,
+           "reduced": {"global_batch": "256 -> 8 (one card)"},
+           "weight_bytes": weights, "moment_bytes": moments,
+           "losses": losses, "step_ms": ms, "step_ms_each": times,
+           "tokens_per_s": TK_BATCH * TK_SEQ / (ms / 1e3),
+           "peak_bytes": peak, "launches": launches,
+           "launches_per_step": per_step, "busy_share":
+               busy / wall_ms if busy is not None else None,
+           "profiled_wall_ms": wall_ms, "breakdown": rows,
+           "layer_grad_rel_fro": layer_errs}
+    busy_txt = "not measured" if busy is None else \
+        f"{100 * out['busy_share']:.1f} % of a profiled step"
+    log(f"{cfg.name} training {cfg.n_layers} layers x {TK_BATCH} x {TK_SEQ} "
+        f"{cfg.dtype} (train_4k's global batch 256 cut to {TK_BATCH}): "
+        f"{ms:.1f} ms a step ({', '.join('%.1f' % t for t in times)}), "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak "
+        f"{peak / 2**30:.2f} GiB (weights {weights / 2**30:.2f}, AdamW "
+        f"moments {moments / 2**30:.2f}), device busy {busy_txt}")
+    log(f"  launches a step: {per_step}; losses {['%.4f' % x for x in losses]}"
+        f" ({CARD})")
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_kernels(dev, gen) -> dict:
+    """Phase 17: training through the kernels (module note)."""
+    t_phase = time.perf_counter()
+    parts = (("flash_bwd_sweep", lambda: _flash_bwd_sweep(dev, gen)),
+             ("scan_bwd_sweep", lambda: _scan_bwd_sweep(dev, gen)),
+             ("flash_bwd", lambda: _flash_bwd_timed(dev, gen)),
+             ("scan_bwd", lambda: _scan_bwd_timed(dev, gen)),
+             ("cut", lambda: _cut_vs_plain(dev)),
+             ("train", lambda: _train_full(dev)))
+    out, seconds = {}, {}
+    for name, run in parts:
+        t0 = time.perf_counter()
+        out[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    out["total_s"] = time.perf_counter() - t_phase
+    log(f"training-through-kernels phase: {out['total_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f") ({CARD})")
+    return out
+
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4125,6 +4667,7 @@ def main(argv=None) -> int:
     coded_runtime = phase_coded_runtime(paper_ops)
     mesh = phase_mesh(dev, paper_ops[0])
     del paper_ops
+    train_k = phase_train_kernels(dev, gen)
 
     # The exact L-SAC fit reads the first R completions.  Batch 1's
     # completion order gives a well-conditioned fit: its exact state is held
@@ -4179,7 +4722,9 @@ def main(argv=None) -> int:
          "library_ms": enc_main["library_ms"]},
     ]
     win = flash["window1024"]
+    tr = train_k["train"]["launches"]
     flash_runs = {"hymba_served": lm["launches"]["flash_attention"],
+                  "hymba_train": tr["flash_attention"],
                   "qwen2_moe_served": families["qwen2_moe"]["launches"][
                       "flash_attention"],
                   "musicgen_served": families["musicgen"]["launches"][
@@ -4190,6 +4735,7 @@ def main(argv=None) -> int:
                      for k, v in mesh_runs.items()
                      if "flash_attention" in v}}
     scan_runs = {"hymba_served": lm["launches"]["ssm_scan"],
+                 "hymba_train": tr["ssm_scan"],
                  **{f"{a}_served": dense[a]["launches"]["ssm_scan"]
                     for a in DENSE_ARCHS + (BIG_ARCH,)},
                  **{f"mesh_{k}": v["ssm_scan"]
@@ -4214,6 +4760,34 @@ def main(argv=None) -> int:
          "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
          "library_ms": None},
     ]
+    # the backward kernels: no TPU kernel; the reference differentiates the
+    # jnp paths with jax.grad (replaces: the function it differentiates)
+    fb, sb = train_k["flash_bwd"]["window1024"], train_k["scan_bwd"]
+    p14 = coded_runtime["train"]
+    flash_bwd_runs = {"hymba_train": tr["flash_attention_bwd"],
+                      **{f"repro100m_{k}": p14[k]["flash_launches"][
+                          "flash_attention_bwd"]
+                         for k in ("uncoded", "coded")}}
+    kernels += [
+        {"name": "flash_attention_bwd", "status": "added", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/models/attention.py:60",
+         "launches": sum(flash_bwd_runs.values()),
+         "launches_by_run": flash_bwd_runs,
+         "shape": fb["shape"], "window": fb["window"],
+         "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
+         "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
+         "bound_by": fb["bound_by"], "library_ms": fb["library_ms"]},
+        {"name": "ssm_scan_bwd", "status": "added", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan/ref.py:22",
+         "launches": tr["ssm_scan_bwd"],
+         "launches_by_run": {"hymba_train": tr["ssm_scan_bwd"]},
+         "shape": sb["shape"], "max_abs_err": sb["max_abs_err"],
+         "ms": sb["ms"], "plain_ms": sb["plain_ms"],
+         "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"],
+         "library_ms": None},
+    ]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -4226,7 +4800,7 @@ def main(argv=None) -> int:
              "open_loop": open_loop, "autotune": autotune,
              "engine": engine, "cluster": cluster,
              "coded_runtime": coded_runtime, "mesh": mesh,
-             "kernels": kernels},
+             "train_kernels": train_k, "kernels": kernels},
             indent=2))
     print(card)
     print(json.dumps({"kernels": kernels, "not_ported": []}))

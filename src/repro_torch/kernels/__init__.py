@@ -6,7 +6,7 @@ the plain version on a CPU tensor, a launch count) and ``ref.py`` (the
 plain PyTorch version); the CUDA sources live in ``repro_torch/csrc`` and
 are built by :mod:`._build`.  ``coded_matmul`` and ``poly_encode`` carry
 the coded-matmul serve; ``flash_attention`` and ``ssm_scan`` the language
-model's prefill.
+model's prefill and, through their backward kernels, its training.
 """
 from .coded_matmul.ops import (coded_matmul, worker_products,
                                worker_products_complex)

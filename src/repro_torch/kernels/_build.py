@@ -46,19 +46,31 @@ SIGNATURES = {
         "poly_encode_bf16": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL,
                               _LL, _LL, _P], _I),
     },
-    # q, k, v, o; B, H, Hkv, Lq, Lkv, D, causal, window, q_offset; scale;
-    # (batch, head, position) strides of q, k, v, o; stream
+    # q, k, v, o, lse (or NULL); B, H, Hkv, Lq, Lkv, D, causal, window,
+    # q_offset; scale; (batch, head, position) strides of q, k, v, o; stream
     "flash_attention": {
-        **{name: ([_P] * 4 + [_I] * 9 + [_F] + [_LL] * 12 + [_P], _I)
+        **{name: ([_P] * 5 + [_I] * 9 + [_F] + [_LL] * 12 + [_P], _I)
            for name in ("flash_attention_f32", "flash_attention_bf16")},
+        # q, k, v, o, lse, do, dq, dk, dv, row dots; B, H, Hkv, Lq, Lkv, D,
+        # causal, window, q_offset; scale; strides of q, k, v, o, do; stream
+        **{name: ([_P] * 10 + [_I] * 9 + [_F] + [_LL] * 15 + [_P], _I)
+           for name in ("flash_attention_bwd_f32",
+                        "flash_attention_bwd_bf16")},
         # the instantiated head dims: (out array, its length) -> their count
         "flash_attention_head_dims": ([_P, _I], _I),
     },
-    # x, dt, A, B, C, D, y, h_final; Bt, L, Dm, S; (batch, time) strides of
-    # x, dt, B, C; stream
+    # x, dt, A, B, C, D, y, h_final, checkpoints (or NULL); Bt, L, Dm, S;
+    # (batch, time) strides of x, dt, B, C; stream
     "ssm_scan": {
-        name: ([_P] * 8 + [_I] * 4 + [_LL] * 8 + [_P], _I)
-        for name in ("ssm_scan_f32", "ssm_scan_bf16")
+        **{name: ([_P] * 9 + [_I] * 4 + [_LL] * 8 + [_P], _I)
+           for name in ("ssm_scan_f32", "ssm_scan_bf16")},
+        # x, dt, A, B, C, D, dy, checkpoints, dx, ddt, dA, dB, dC, dD,
+        # scratch; Bt, L, Dm, S; (batch, time) strides of x, dt, B, C; stream
+        **{name: ([_P] * 15 + [_I] * 4 + [_LL] * 8 + [_P], _I)
+           for name in ("ssm_scan_bwd_f32", "ssm_scan_bwd_bf16")},
+        # Bt, L, Dm, S, out sizes[2]: the backward's scratch floats (and
+        # its channel blocks) -> UNSUPPORTED or 0
+        "ssm_scan_bwd_scratch": ([_I] * 4 + [_P], _I),
     },
 }
 
@@ -170,9 +182,11 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def refuse_autograd(what: str, *tensors) -> None:
-    """The kernels have no backward pass: raise rather than return an output
-    that autograd cannot differentiate, when a gradient is being recorded
-    for any of ``tensors`` (the plain versions differentiate)."""
+    """The serve's kernels (``coded_matmul``, ``poly_encode``) have no
+    backward pass: raise rather than return an output that autograd cannot
+    differentiate, when a gradient is being recorded for any of
+    ``tensors`` (the plain versions differentiate).  Flash attention and
+    the scan have backward kernels."""
     import torch
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"the {what} kernel has no backward pass; run its "

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check, load
+from .._build import check, load, refuse_autograd
 from .ref import poly_encode_ref
 
 __all__ = ["poly_encode"]
@@ -48,6 +48,7 @@ def poly_encode(G: torch.Tensor, X: torch.Tensor, *,
         raise ValueError(f"G on {G.device}, X on {X.device}")
     if X.device.type == "cpu":
         return poly_encode_ref(G, X, parts=parts)
+    refuse_autograd("poly_encode", G, X)
     if G.dtype != torch.float32 or not G.is_contiguous():
         raise TypeError(f"the poly_encode kernel takes a contiguous float32 "
                         f"G; got {G.dtype}, strides {G.stride()}")

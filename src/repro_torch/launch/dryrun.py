@@ -35,15 +35,14 @@ before's k and v are still held.  A first pass at each depth fills
 DTensor's sharding caches and is not counted: its shape inference runs
 each new op at global shapes (the walk leaves those ops out; a counted
 trace in which inference still ran is repeated, and the record keeps the
-count).  The chunked cross entropy runs all its chunks.  A trained
-ssm/hybrid layer runs the plain scan (the kernel has no backward), a
-loop over the sequence: :func:`plan` traces a few of its steps and
-multiplies one step's cost by the sequence length.
+count).  The chunked cross entropy runs all its chunks.
 
-The prefill and decode run the kernels' paths: the flash and scan launches
-are custom ops whose fake registrations give their outputs' shapes
-(``repro_torch::flash_attention``, ``repro_torch::ssm_scan``); the train
-step runs the plain versions, as on the card.
+Every step runs the kernels' paths, as on the card: the flash and scan
+launches are custom ops whose fake registrations give their outputs'
+shapes (``repro_torch::flash_attention``, ``repro_torch::ssm_scan``), and
+a train step's backward runs their backward ops
+(``repro_torch::flash_attention_bwd``, ``repro_torch::ssm_scan_bwd``), so
+no trace holds an L×L score matrix or a loop over the sequence.
 
 ``cost_mode`` cells (the reference's prefill proxy: forward and
 last-token logits with materialized attention) and the ``long_500k`` skip
@@ -61,7 +60,6 @@ Usage::
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import time
@@ -261,41 +259,18 @@ def _minus(a: OpCosts, b: OpCosts) -> OpCosts:
                     for k in set(a.by_kind) | set(b.by_kind)})
 
 
-# the plain scan's steps traced per ssm layer in a train cell: the cost of
-# K2 - K1 steps gives one step's
-_K1, _K2 = 2, 4
-
-
 def plan(cfg, shape, mesh, *, coded: bool = False) -> dict:
     """The per-device plan of one cell on ``mesh`` (the fake group of its
     size initialised, the mesh registered): ``memory``, ``cost`` and
-    ``collectives`` as the reference's records hold them.
-
-    A train cell of an ssm or hybrid arch runs the plain scan, a loop over
-    the sequence: it is traced at ``_K1`` and ``_K2`` steps, and the
-    difference per step is added for the remaining steps of every layer
-    (costs) and once (the peak: with per-layer recomputation one layer's
-    scan holds its saved steps at a time)."""
-    from ..kernels.ssm_scan.ref import traced_steps
+    ``collectives`` as the reference's records hold them."""
     L = cfg.n_layers
     two, three = cfg.replace(n_layers=2), cfg.replace(n_layers=3)
-    stepped = shape.kind == "train" and cfg.has_ssm
-    cap = traced_steps(_K1) if stepped else contextlib.nullcontext()
-    with cap:
-        for warm in (three, two):    # fill DTensor's caches
-            _trace(warm, shape, mesh, coded, walk=False)
-        c2, p2, n2, s2 = _trace(two, shape, mesh, coded, walk=True)
-        c3, p3, _, s3 = _trace(three, shape, mesh, coded, walk=True)
+    for warm in (three, two):    # fill DTensor's caches
+        _trace(warm, shape, mesh, coded, walk=False)
+    c2, p2, n2, s2 = _trace(two, shape, mesh, coded, walk=True)
+    c3, p3, _, s3 = _trace(three, shape, mesh, coded, walk=True)
     costs = c2 + _minus(c3, c2).scaled(L - 2)
     step_peak = p2 + (L - 2) * (p3 - p2)
-    if stepped:
-        with traced_steps(_K2):
-            ck, pk, _, _ = _trace(two, shape, mesh, coded, walk=True)
-        steps = shape.seq_len + (cfg.vision_tokens
-                                 if cfg.family == "vlm" else 0)
-        per_step = _minus(ck, c2).scaled(1.0 / (2 * (_K2 - _K1)))
-        costs = costs + per_step.scaled(L * (steps - _K1))
-        step_peak += (pk - p2) / (_K2 - _K1) * (steps - _K1)
     held = _held_bytes(cfg, shape, mesh)
     argument = held["param_bytes"] + held["opt_bytes"] + held["state_bytes"]
     coll = collective_wire_bytes(())

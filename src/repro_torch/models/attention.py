@@ -3,8 +3,10 @@ single-token KV-cache decode.
 
 Counterpart of the reference's ``models/attention.py``.  The reference's
 full-sequence path is ``blockwise_attention``, a jnp online softmax that
-computes what its Pallas kernel computes; here it is the kernel itself
-(:func:`repro_torch.kernels.flash_attention`).
+computes what its Pallas kernel computes and that ``jax.grad``
+differentiates in training; here it is the kernel itself
+(:func:`repro_torch.kernels.flash_attention`), in training too, through
+its backward kernels.
 :func:`decode_attention` stays plain PyTorch, as in the reference.
 
 On a mesh (DTensor operands) the reference's dispatch is kept: when the
@@ -121,7 +123,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``window`` is the layer's sliding window as a Python int (0: full
     attention).  ``use_kernels=False`` runs the plain version on any device
     instead of the kernel — the caller's explicit choice, for comparisons.
-    DTensor operands take the mesh branches of the module note.
+    Under autograd the kernel's gradients come from its backward kernels
+    (the train step's path), the plain version's from autograd.  DTensor
+    operands take the mesh branches of the module note.
     """
     if is_dt(q):
         return _mesh_attention(q, k, v, causal, window, q_offset,

@@ -19,11 +19,12 @@ stacked layer axis.  The functions mirror the reference's:
 ``gathered_logits_fn``, ``lm_loss``, ``init_decode_state``, ``prefill`` and
 ``decode_step``.
 
-The prefill runs each layer's attention in the flash kernel and its Mamba
-half in the scan kernel (``use_kernels=False`` runs their plain versions
-instead, for comparisons).  The training loss (:func:`lm_loss`) runs the
-plain versions, which autograd differentiates, as the reference's
-``make_train_step`` does by default: the kernels have no backward pass.  The decode state keeps the reference's stacked
+The prefill and the training loss (:func:`lm_loss`) run each layer's
+attention in the flash kernel and its Mamba half in the scan kernel
+(``use_kernels=False`` on the prefill runs their plain versions instead,
+for comparisons); under autograd the kernels' backward kernels give the
+gradients, where the reference differentiates its ``blockwise_attention``
+and chunked ``ssm_scan_ref``.  The decode state keeps the reference's stacked
 per-layer layout; :func:`decode_step` writes the KV caches in place and
 returns the state with the next position.
 
@@ -322,15 +323,18 @@ def _all_logits(params: LM, h: torch.Tensor, cfg) -> torch.Tensor:
     return compute_logits(params, h, cfg)
 
 
-def lm_loss(params: LM, batch: dict, cfg) -> torch.Tensor:
+def lm_loss(params: LM, batch: dict, cfg, *,
+            use_kernels: bool = True) -> torch.Tensor:
     """Next-token CE loss (float32) over ``batch["tokens"]`` (B, L) — (B,
     L, n_cb) for audio, the mean over codebooks — a tensor on the
     parameters' device.  For vlm, ``batch["vision_embeds"]`` (B, n_vis, d)
     is prepended to the token embeddings and only text positions are
     scored; with experts, ``0.01·`` the MoE load-balance loss is added;
     ``batch["coded_weights"]`` (N,), when present, runs the coded FFN.
-    The layers run the kernels' plain versions (autograd differentiates
-    them)."""
+    The layers run the flash and scan kernels, whose backward kernels
+    autograd calls (on the CPU their plain versions, which autograd
+    differentiates); ``use_kernels=False`` runs the plain versions on any
+    device, for comparisons only, as on :func:`prefill`."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     x = embed_tokens(params, tokens, cfg)
@@ -341,7 +345,8 @@ def lm_loss(params: LM, batch: dict, cfg) -> torch.Tensor:
         x = torch.cat([vis, x], dim=1)
     L = x.shape[1]
     positions = torch.arange(L, device=x.device)[None].expand(B, L)
-    h, moe_aux = forward_hidden(params, x, cfg, positions, use_kernels=False,
+    h, moe_aux = forward_hidden(params, x, cfg, positions,
+                                use_kernels=use_kernels,
                                 coded_weights=batch.get("coded_weights"))
     h = h[:, n_vis:]                # text positions only
     h = h[:, :-1]                   # predict token t+1 from position t

@@ -5,7 +5,9 @@ causal depthwise conv on x; data-dependent Δ, B, C from x; diagonal
 selective scan (:func:`repro_torch.kernels.ssm_scan`); gate by SiLU(z);
 out_proj.  Unlike the reference, the full-sequence block runs the scan
 kernel in both modes: with ``return_state`` the kernel also hands back the
-final state for the decode, where the reference drops to its plain scan.
+final state for the decode, where the reference drops to its plain scan;
+in training the kernel's backward kernel differentiates it, where the
+reference differentiates its chunked jnp scan.
 Decode keeps O(1) state per layer: the conv tail and the SSM state h, and
 steps in plain PyTorch (:func:`ssm_step_ref`), as in the reference.
 

@@ -5,11 +5,13 @@ when a step is made: the card unless the caller asks for the CPU, raising
 without a card.  Tokens may come as numpy arrays or tensors; the
 parameters must already be on the step's device.
 
-The train step differentiates the kernels' plain versions, as the
-reference's ``make_train_step`` does by default (``use_pallas=False``):
-the hand-written kernels have no backward pass, and the reference's Pallas
-kernels do not differentiate either, even in interpret mode (ROADMAP), so
-the port's train step has no kernel switch.
+The train step runs the flash and scan kernels and differentiates them
+through their backward kernels (``flash_attention_bwd``,
+``ssm_scan_bwd``); the reference's ``make_train_step`` differentiates the
+jnp paths its Pallas kernels compute (``blockwise_attention``, the chunked
+``ssm_scan_ref``; ``use_pallas=False``), whose gradients the backward
+kernels' plain versions are held to.  The train step has no kernel
+switch: on the CPU the wrappers run the plain versions.
 
 On a mesh (:func:`repro_torch.models.hints.set_mesh`) the steps take and
 return DTensor parameters, optimizer state and decode state with the

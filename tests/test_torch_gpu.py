@@ -235,7 +235,7 @@ def test_flash_library_reports_its_head_dims(cuda):
 
         def kernel(q_, k_, v_, **kw):
             seen.append(q_.data_ptr())
-            return ops._launch(q_, k_, v_, **kw)
+            return ops._launch(q_, k_, v_, with_lse=False, **kw)[0]
         got = ops.run_padded(kernel, q, q, q, dims, causal=True, window=0,
                              q_offset=0)
         assert seen == [q.data_ptr()]
@@ -713,19 +713,108 @@ def test_cluster_worker_that_cannot_see_the_card_fails(cuda, monkeypatch):
             be.pool.wait_ready(timeout=120.0)
 
 
+# (B, H, Hkv, Lq, Lkv, d, causal, window, q_offset): the backward over
+# every built head dim and the padded 18 and 112, groups of 1, 5 and 8,
+# windows and a query chunk's offset, lengths off the 64-row tiles, a row
+# that sees no key
+FLASH_BWD_CASES = [(1, 2, 2, 64, 64, 16, True, 0, 0),
+                   (2, 4, 2, 70, 70, 32, True, 0, 0),
+                   (1, 25, 5, 300, 300, 64, True, 100, 0),
+                   (1, 10, 2, 129, 200, 128, True, 0, 71),
+                   (1, 8, 1, 40, 40, 256, True, 0, 0),
+                   (1, 4, 4, 65, 97, 18, False, 0, 0),
+                   (1, 16, 2, 129, 130, 112, True, 33, 1),
+                   (1, 4, 2, 100, 40, 64, True, 20, 0)]
+# (Bt, L, Dm, S, offset): the scan's backward over each state-size
+# instance, L across its 256-step chunks and sub-chunks, Dm off the
+# 128-channel block, B and C as column views
+SCAN_BWD_CASES = [(1, 32, 16, 4, None), (2, 100, 40, 8, 7),
+                  (2, 300, 136, 16, 100), (1, 513, 33, 32, None),
+                  (1, 1, 8, 5, None)]
+# relative Frobenius error of each gradient against the plain backward:
+# float32 kernels compute the same float32 formulas in another order; the
+# bf16 ones round P and dS (flash) to bf16 for the second products and
+# every gradient to bf16; relative to a norm of at least 1e-2 an element
+# (a gradient that cancels to ~0 has no relative error to speak of)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _rel_fro(got, want) -> float:
+    den = max(want.float().norm().item(), 1e-2 * want.numel() ** 0.5)
+    return (got.float() - want.float()).norm().item() / den
+
+
+@pytest.mark.parametrize("kind,case,dtype", [
+    ("flash", c, dt) for c in FLASH_BWD_CASES for dt in DTYPES] + [
+    ("scan", c, dt) for c in SCAN_BWD_CASES for dt in DTYPES])
+def test_flash_and_scan_differentiate_on_the_card(cuda, kind, case, dtype):
+    """Under autograd flash and the scan launch their backward kernels, and
+    the gradients match the plain backward (``flash_attention_bwd_ref``,
+    ``ssm_scan_bwd_ref``) on the same inputs; a gradient of the scan's
+    final state raises."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref)
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_bwd
+    from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_ref,
+                                                  ssm_scan_fwd_ref)
+    if kind == "flash":
+        B, H, Hkv, Lq, Lkv, d, causal, window, off = case
+        leaves = [_randn(s, dtype, cuda, 40 + i).requires_grad_(True)
+                  for i, s in enumerate(((B, H, Lq, d), (B, Hkv, Lkv, d),
+                                         (B, Hkv, Lkv, d)))]
+        kw = {"causal": causal, "window": window, "q_offset": off}
+        before = flash_attention_bwd.launches
+        out = flash_attention(*leaves, **kw)
+        do = _randn(out.shape, dtype, cuda, 43)
+        got = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.launches == before + 1
+        plain = [t.detach() for t in leaves]
+        o, lse = flash_attention_lse_ref(*plain, **kw)
+        want = flash_attention_bwd_ref(*plain, o.to(out.dtype), lse, do,
+                                       **kw)
+    else:
+        Bt, L, Dm, S, offset = case
+        x, dt, A, B, C, D = _scan_inputs(Bt, L, Dm, S, dtype, cuda, 44,
+                                         offset)
+        base = [x, dt, A, B._base if B._base is not None else B,
+                C._base if C._base is not None else C, D]
+        for t in {id(t): t for t in base}.values():
+            t.requires_grad_(True)
+        if offset is not None:
+            B = base[3][..., offset:offset + S]
+            C = base[3][..., offset + S:]
+        args = (x, dt, A, B, C, D)
+        before = ssm_scan_bwd.launches
+        y, h = ssm_scan(*args, return_final=True)
+        dy = _randn(y.shape, dtype, cuda, 45)
+        got = torch.autograd.grad(y, args, dy, retain_graph=True)
+        torch.cuda.synchronize()
+        assert ssm_scan_bwd.launches == before + 1
+        with pytest.raises(RuntimeError, match="final state"):
+            torch.autograd.grad(h.sum(), args, allow_unused=True)
+        plain = [t.detach() for t in args]
+        _, _, ckpt = ssm_scan_fwd_ref(*plain)
+        want = ssm_scan_bwd_ref(*plain, dy, ckpt)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        assert _rel_fro(g, w) <= BWD_TOL[dtype]
+
+
 def test_kernels_refuse_autograd_on_the_card(cuda):
-    """The kernels have no backward pass: under autograd their wrappers
-    raise on the card instead of returning an output with no gradient."""
-    q = torch.randn((1, 2, 16, 16), device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward pass"):
-        flash_attention(q, q, q)
-    with torch.no_grad():
-        flash_attention(q, q, q)
+    """The serve's kernels have no backward pass: under autograd their
+    wrappers raise on the card instead of returning an output with no
+    gradient."""
     E = torch.randn((2, 8, 8), device="cuda", requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward pass"):
         coded_matmul(E, E)
-    x = torch.randn((1, 8, 4), device="cuda", requires_grad=True)
-    A = -torch.ones((4, 2), device="cuda")
-    B = torch.randn((1, 8, 2), device="cuda")
+    with torch.no_grad():
+        coded_matmul(E, E)
+    G = torch.randn((4, 2), device="cuda")
+    X = torch.randn((2, 8, 8), device="cuda", requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward pass"):
-        ssm_scan(x, x.detach().abs(), A, B, B, torch.ones(4, device="cuda"))
+        poly_encode(G, X)
+    with torch.no_grad():
+        poly_encode(G, X)
