@@ -105,8 +105,9 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
     against the numpy backend (1e-10 relative plus twice the float64
     rounding bound of the evaluation); both times.
 13. The worker-process cluster (``--backend cluster --compute device``):
-    phase 4's L-SAC job (2048 x 32768, K=8, N=24, 8 requests, batches of 4
-    when ``/dev/shm`` holds two batches' float32 stacks) on 24 worker
+    phase 4's L-SAC job on its first 4 requests (2048 x 32768, K=8, N=24,
+    one batch of 4 when ``/dev/shm`` holds two batches' float32 stacks;
+    phase 18 serves the same batch in bf16) on 24 worker
     processes, each computing its shard in the ``coded_matmul`` kernel on
     the card, with its trace recorded and an answer at every completion;
     the trace replayed in this process through ``ReplayBackend(compute=
@@ -190,14 +191,32 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
     scratch) at hymba's and falcon-mamba-7b's channels at 8 x 4096; (b)
     hymba-1.5b at full width, 2 layers (global, windowed), 1 x 4096: loss
     and every parameter's gradient with the kernels against the plain
-    path (5e-2), and each of the 32 layers' own gradients on the plain
-    forward's input at 1 x 1088 (5e-2); (c) a repeat of the first step's
+    path (5e-2), and the own gradients of the three global layers and
+    the windowed layer after each (TK_GRAD_LAYERS) on the plain forward's
+    input at 1 x 1088 (5e-2); (c) a repeat of the first step's
     loss and gradients bit-identical; (d) hymba-1.5b trained at 32 layers
     x 8 x 4096 in bf16 (train_4k's global batch 256 cut to 8): a warm-up
     step and 4 timed steps (step ms, tokens/s, peak memory, launches a
     step: 64 flash and 64 scan forwards with the remat, 32 of each
     backward), a profiled step (device busy share), finite losses that
     fall.
+18. bf16 worker products on the device paths (run after 16): (a) phase 4's
+    L-SAC job (8 requests) and G-SAC job (4, the four-launch complex
+    path) through ``MasterScheduler`` on ``TorchDeviceBackend(dtype=
+    torch.bfloat16)`` (the float32 encode, each stack rounded to bf16
+    once, the bf16 ``coded_matmul`` instance), the bf16 launches zeroed
+    before each run and counted (1 a batch, 4 for G-SAC), each batch's
+    products within 1e-2 relative Frobenius of the float64 oracle's and
+    each estimate within the bound its decode weights put on the product
+    errors, the serve loop per batch beside phase 4's float32 serve; (b)
+    phase 13's L-SAC job, one batch of 4 on 24 worker processes with
+    ``SAC_CLUSTER_DEVICE_DTYPE=bfloat16`` (the workers' own counters show
+    the bf16 launches), its trace replayed here through
+    ``ReplayBackend(compute="device")`` under the same dtype, every
+    estimate bit-identical, held as in (a); (c) ``distributed_coded_matmul``
+    and ``decode_on_mesh(dtype=torch.bfloat16)`` with NCCL at world size 1
+    on phase 4's first pair, one bf16 launch each, each estimate within
+    the bound its bf16 weights, products and sum put on it.
 15. Print the card's name and power limit, one ``{"kernels": [...]}`` line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1761,6 +1780,7 @@ def phase_full_serve(code: str, requests: int, operands=None) -> dict:
                 exact.setdefault(r["batch"], []).append(a["rel_err"])
     rows = s["deadlines"]
     out = {"code": code, "requests": requests, "launches": launches,
+           "batches": len({r["batch"] for r in rep["requests"]}),
            "wall_s": s["wall_s"], "rps": s["rps"], "total_s": total,
            "peak_bytes": peak, "deadlines": rows,
            "exact_max_err_by_batch": {b: max(e) for b, e in exact.items()},
@@ -1838,13 +1858,14 @@ ENGINE_TRIALS, ENGINE_SEEDS = 100, (5, 6)
 def _zero_launches() -> None:
     from repro_torch.kernels import coded_matmul, poly_encode
     torch.cuda.synchronize()
-    coded_matmul.launches = 0
+    coded_matmul.launches = coded_matmul.bf16_launches = 0
     poly_encode.launches = 0
 
 
 def _read_launches() -> dict:
     from repro_torch.kernels import coded_matmul, poly_encode
     return {"coded_matmul": coded_matmul.launches,
+            "coded_matmul_bf16": coded_matmul.bf16_launches,
             "poly_encode": poly_encode.launches}
 
 
@@ -2191,8 +2212,11 @@ def phase_engine() -> dict:
 # the chaos, replication and socket runs (SIDE_ARGS, each a serve CLI in a
 # process of its own, all three at once) and the real-time run
 # (CLUSTER_SIDE) are cut in width and fleet: they check fault and clock
-# semantics, and the host moves their bytes slowly (PERF.md §4, §5).
-CLUSTER_WORKERS, CLUSTER_REQUESTS = 24, 8
+# semantics, and the host moves their bytes slowly (PERF.md §4, §5).  The
+# full-width job serves the first CLUSTER_REQUESTS of phase 4's requests,
+# one batch (two before phase 18 served the same batch in bf16: a batch
+# takes 31-57 s of host time, and the script's time limit is shared).
+CLUSTER_WORKERS, CLUSTER_REQUESTS = 24, 4
 CLUSTER_ARGS = ["--rows", "2048", "--inner", "32768", "--K", "8", "--N",
                 "24", "--code", "lsac_ortho", "--device", "cuda",
                 "--backend", "cluster", "--compute", "device", "--workers",
@@ -2330,6 +2354,24 @@ def _host_copy_rates(nbytes: int = 1 << 28) -> dict:
     recv.close()
     send.close()
     return out
+
+
+def _keeping(base, kept: list, times: list | None = None):
+    """``base``, a modeled backend class, appending each batch's products
+    to ``kept`` and, given ``times``, its latency row to ``times``."""
+    class Keeping(base):
+        def compute_products(self, *a, **kw):
+            P = super().compute_products(*a, **kw)
+            kept.append(P)
+            return P
+
+        def draw_latencies(self, rng, N):
+            t = super().draw_latencies(rng, N)
+            if times is not None:
+                times.append(t)
+            return t
+
+    return Keeping
 
 
 def _exact_checks(code, beta_mode: str, order, P, diff, results, operands,
@@ -2526,8 +2568,9 @@ def phase_cluster(device_serve: dict, operands: list) -> dict:
     argv = CLUSTER_ARGS + ["--batch-size", str(batch), "--record", trace,
                            "--metrics-out", metrics]
     args = build_parser().parse_args(argv)
-    if len(operands) != CLUSTER_REQUESTS:
+    if len(operands) < CLUSTER_REQUESTS:
         fail("cluster: phase 4's operands were not drawn")
+    operands = operands[:CLUSTER_REQUESTS]
     torch.cuda.empty_cache()
     mem_before = float(_nvidia_smi("memory.used"))
     _zero_launches()
@@ -2613,7 +2656,7 @@ def _cluster_full_width(rep, args, batch, operands, trace, metrics, total,
         t = sorted(rec.times.values())
         arrivals.append([t[0], t[len(t) // 2], t[-1]])
     wall_batch = s["wall_s"] / n_batches
-    dev_batch = device_serve["wall_s"] / n_batches
+    dev_batch = device_serve["wall_s"] / device_serve["batches"]
     log(f"cluster serve lsac_ortho 2048x32768 x{CLUSTER_REQUESTS} on "
         f"{CLUSTER_WORKERS} worker processes, batches of {batch}: "
         f"{s['wall_s']:.2f} s serve loop = {wall_batch:.3f} s per batch "
@@ -2647,16 +2690,10 @@ def _cluster_full_width(rep, args, batch, operands, trace, metrics, total,
     # float64 oracle; (3) every exact state's decode checked
     code = CODES[args.code].build(args.K, args.N)
     kept = []
-
-    class _KeepingReplay(ReplayBackend):
-        def compute_products(self, *a, **kw):
-            P = super().compute_products(*a, **kw)
-            kept.append(P)
-            return P
-
     t0 = time.perf_counter()
-    replay = _KeepingReplay(TraceRecording.load(trace), compute="device",
-                            device=args.device)
+    replay = _keeping(ReplayBackend, kept)(TraceRecording.load(trace),
+                                           compute="device",
+                                           device=args.device)
     cfg = ServeConfig(deadlines=tuple(float(x) for x in
                                       args.deadlines.split(",")),
                       stream=args.stream, batch_size=args.batch_size,
@@ -4106,6 +4143,10 @@ TK_ARCH, TK_BATCH, TK_SEQ, TK_STEPS = "hymba-1.5b", 8, 4096, 4
 # scan's time loop, forward and autograd, runs once a layer: 79 s for the
 # 32 layers at 1 x 2048 on the card)
 TK_CUT_SEQ, TK_LAYER_SEQ = 4096, 1088
+# the layers whose own gradients are checked: hymba's three global layers
+# and the windowed layer after each (the last one before it at 31).  All
+# 32 took ~50 s; the cut pays for phase 18 inside the script's time limit.
+TK_GRAD_LAYERS = (0, 1, 15, 16, 30, 31)
 # relative Frobenius error of each gradient of a backward kernel against
 # the plain backward on the same inputs, and against autograd of the plain
 # forward: float32 kernels compute the same float32 formulas in another
@@ -4478,11 +4519,11 @@ def _cut_vs_plain(dev) -> dict:
             "worst_param": worst}
 
 
-def _layer_grad_errors(cfg, model, dev) -> list:
-    """(b) each of the 32 layers on the plain forward's input to it (1 x
+def _layer_grad_errors(cfg, model, dev) -> dict:
+    """(b) each of TK_GRAD_LAYERS on the plain forward's input to it (1 x
     TK_LAYER_SEQ), its input and parameter gradients for one seeded output
     gradient, with the kernels against the plain versions: one layer's
-    own backward error at every depth."""
+    own backward error at each kind of layer, shallow and deep."""
     from repro_torch.models.blocks import block_forward
     from repro_torch.models.lm import embed_tokens, layer_windows
     tokens = _tokens(cfg, 1, TK_LAYER_SEQ, 19, dev)
@@ -4494,11 +4535,11 @@ def _layer_grad_errors(cfg, model, dev) -> list:
         model.embed.dtype)
     with torch.no_grad():
         xs = [embed_tokens(model, tokens, cfg)]
-        for i in range(cfg.n_layers - 1):
+        for i in range(max(TK_GRAD_LAYERS)):
             xs.append(block_forward(model.layers[i], xs[-1], cfg, pos,
                                     wins[i], use_kernels=False)[0])
-    out = []
-    for i in range(cfg.n_layers):
+    out = {}
+    for i in TK_GRAD_LAYERS:
         layer = model.layers[i]
         params = list(layer.parameters())
         grads = []
@@ -4514,15 +4555,16 @@ def _layer_grad_errors(cfg, model, dev) -> list:
             finally:
                 for p in params:
                     p.requires_grad_(False)
-        out.append(max(_rel(a, b) for a, b in zip(*grads)))
+        out[i] = max(_rel(a, b) for a, b in zip(*grads))
         del grads
-    if not all(e <= TK_GRAD_TOL for e in out):
+    shown = {i: "%.2e" % e for i, e in out.items()}
+    if not all(e <= TK_GRAD_TOL for e in out.values()):
         fail(f"{cfg.name} layers' own gradients, kernels vs plain: "
-             f"{['%.2e' % e for e in out]} (limit {TK_GRAD_TOL})")
-    log(f"{cfg.name} each layer's own gradients (input and parameters) on "
-        f"the plain forward's input, 1 x {L}, kernels vs plain: worst "
-        f"relative Frobenius by layer {['%.1e' % e for e in out]} (limit "
-        f"{TK_GRAD_TOL}; windowed and global layers alike)")
+             f"{shown} (limit {TK_GRAD_TOL})")
+    log(f"{cfg.name} layers' own gradients (input and parameters) on the "
+        f"plain forward's input, 1 x {L}, kernels vs plain: worst relative "
+        f"Frobenius by layer {shown} (limit {TK_GRAD_TOL}; global layers "
+        f"{cfg.global_attn_layers}, the others windowed)")
     return out
 
 
@@ -4549,7 +4591,7 @@ def _train_full(dev) -> dict:
                   for t in list(opt.m.values()) + list(opt.v.values()))
     t0 = time.perf_counter()
     layer_errs = _layer_grad_errors(cfg, params, dev)
-    log(f"  (each layer's own gradients: {time.perf_counter() - t0:.1f} s)")
+    log(f"  (the layers' own gradients: {time.perf_counter() - t0:.1f} s)")
     data = SyntheticTokens(cfg.vocab_size, TK_SEQ, TK_BATCH, seed=0)
 
     def batch(step):
@@ -4669,6 +4711,395 @@ def phase_train_kernels(dev, gen) -> dict:
         + f") ({CARD})")
     return out
 
+
+# ------------------------------------------------- phase 18: bf16 products
+
+# bf16 worker products on the device paths.  Rounding both operands and
+# the product to bf16 (unit roundoff 2^-8, float32 accumulator) gives about
+# 2e-3 relative Frobenius error on random operands; the limit leaves 5x
+# above that, set from the arithmetic before any run.
+BF16_PRODUCT_TOL = 1e-2
+BF16_U = 2.0 ** -8            # bf16 unit roundoff
+# (a) phase 4's jobs in process: code, requests, launches a batch
+BF16_SERVES = (("lsac_ortho", 8, 1), ("gsac_k1_5", 4, 4))
+BF16_DEADLINES = (1.1, 1.6, 3.0, 9.0)
+
+
+def _bf16_sched(code, backend, batch: int, stream: bool = False):
+    """A scheduler set up as the serve CLI sets one up for phases 4 and
+    13."""
+    from repro_torch.serving import (DecodeWeightCache, MasterScheduler,
+                                     ServeConfig)
+    cfg = ServeConfig(deadlines=BF16_DEADLINES, batch_size=batch,
+                      stream=stream, seed=0)
+    return MasterScheduler(code, backend, cfg, DecodeWeightCache(1024))
+
+
+def _bf16_batch_checks(code, P, part, order, results) -> dict:
+    """One batch of bf16 products ``P`` ``(B, N, Nx, Ny)`` against the
+    float64 oracle's products of the same requests (relative Frobenius over
+    the batch, limit BF16_PRODUCT_TOL), and each served estimate against
+    the float64 estimate with the same weights: ``|‖est − C‖ − ‖est₆₄ −
+    C‖| ≤ |β| Σ_j |w_j| ‖P̃_j − P_j‖`` plus the float64 decode's own
+    rounding (1e-9 ‖C‖).  Returns the batch's worst numbers."""
+    import numpy as np
+
+    from repro_torch.serving import SimulatedBackend
+    dev = P.device
+    P64 = SimulatedBackend._products_torch(
+        code, [a for a, _ in part], [b for _, b in part], None, dev)
+    Pw = P.to(P64.dtype)
+    batch_err = float(torch.linalg.vector_norm(Pw - P64)
+                      / torch.linalg.vector_norm(P64))
+    diff = torch.linalg.vector_norm(Pw - P64, dim=(-2, -1))
+    shard_err = float((diff / torch.linalg.vector_norm(
+        P64, dim=(-2, -1))).max())
+    del Pw
+    diff = diff.cpu().numpy()                    # (B, N), absolute
+    worst, n_est, sum_w = 0.0, 0, 0.0
+    for r, (res, (A, B)) in enumerate(zip(results, part)):
+        C = torch.from_numpy(A).to(dev) @ torch.from_numpy(B).to(dev)
+        c_norm = float(torch.linalg.vector_norm(C))
+        for a in res.answers:
+            if a.rel_err is None:
+                continue
+            w, info = code.estimate_weights(order[:a.m], a.m)
+            beta = complex(code.beta(info, a.m, "one", None))
+            sel = np.asarray(order[:len(w)])
+            stack = P64[r].index_select(0, torch.as_tensor(sel, device=dev))
+            est = torch.tensordot(torch.as_tensor(
+                np.asarray(w), device=dev).to(stack.dtype), stack, dims=1)
+            est = est * (beta if est.is_complex() else beta.real)
+            if est.is_complex():
+                est = est.real
+            err64 = float(torch.linalg.vector_norm(est - C))
+            bound = abs(beta) * float(np.abs(w) @ diff[r, sel]) \
+                + 1e-9 * c_norm
+            worst = max(worst, abs(math.sqrt(a.rel_err) * c_norm - err64)
+                        / bound)
+            sum_w = max(sum_w, float(np.abs(w).sum()))
+            n_est += 1
+            del est, stack
+        del C
+    del P64
+    return {"batch_rel_fro": batch_err, "shard_max_rel_fro": shard_err,
+            "bound_ratio": worst, "estimates": n_est, "max_sum_abs_w": sum_w}
+
+
+def _bf16_check_products(what: str, rows: list) -> None:
+    for i, row in enumerate(rows):
+        if not row["batch_rel_fro"] <= BF16_PRODUCT_TOL:
+            fail(f"{what} batch {i + 1}: bf16 products "
+                 f"{row['batch_rel_fro']:.3e} relative Frobenius from the "
+                 f"float64 oracle (limit {BF16_PRODUCT_TOL})")
+        if not row["estimates"]:
+            fail(f"{what} batch {i + 1}: no estimate to check")
+        if not row["bound_ratio"] <= 1.0:
+            fail(f"{what} batch {i + 1}: an estimate exceeds the bound of "
+                 f"its decode weights by {row['bound_ratio']:.3f}x")
+
+
+def _bf16_serve(code_name: str, requests: int, per_batch: int, operands,
+                f32_serve: dict) -> dict:
+    """(a) One of phase 4's jobs through ``MasterScheduler`` on
+    ``TorchDeviceBackend(dtype=torch.bfloat16)``, in process."""
+    import numpy as np
+
+    from repro_torch.launch.serve import CODES
+    from repro_torch.serving import TorchDeviceBackend
+    code = CODES[code_name].build(8, 24)
+    kept, times = [], []
+    batch = 4
+    part = operands[:requests]
+
+    def serve(backend):
+        sched = _bf16_sched(code, backend, batch)
+        for A, B in part:
+            sched.submit(A, B)
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        results = sched.run()
+        torch.cuda.synchronize()
+        return results, time.perf_counter() - t0
+
+    # the float32 twin in the same harness, for the time beside bf16's
+    _, f32_wall = serve(TorchDeviceBackend(device="cuda",
+                                           straggler_frac=0.15))
+    results, wall = serve(_keeping(TorchDeviceBackend, kept, times)(
+        device="cuda", dtype=torch.bfloat16, straggler_frac=0.15))
+    launches = _read_launches()
+    n_batches = -(-requests // batch)
+    want = n_batches * per_batch
+    if launches["coded_matmul_bf16"] != want \
+            or launches["coded_matmul"] != want:
+        fail(f"bf16 {code_name}: launches {launches}, need {want} of the "
+             "bf16 coded_matmul and no other")
+    if launches["poly_encode"] <= 0:
+        fail(f"bf16 {code_name}: poly_encode was not launched")
+    if len(results) != requests or len(kept) != n_batches:
+        fail(f"bf16 {code_name}: served {len(results)} requests in "
+             f"{len(kept)} batches")
+    dtype = str(kept[0].dtype)
+    t0 = time.perf_counter()
+    rows = []
+    for i, P in enumerate(kept):
+        order = np.argsort(times[i], kind="stable")
+        res = [r for r in results if r.batch == i + 1]
+        rows.append(_bf16_batch_checks(code, P, part[i * batch:
+                                                     (i + 1) * batch],
+                                       order, res))
+    del kept
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    _bf16_check_products(f"bf16 {code_name}", rows)
+    f32_batch = f32_serve["wall_s"] / f32_serve["batches"]
+    log(f"bf16 serve {code_name} x{requests} (TorchDeviceBackend(dtype="
+        f"torch.bfloat16), products {dtype}): {wall:.3f} s serve loop = "
+        f"{wall / n_batches:.3f} s per batch (float32 in the same harness "
+        f"just before: {f32_wall / n_batches:.3f} s; phase 4's float32 "
+        f"serve through the CLI {f32_batch:.3f} s); launches {launches}; "
+        f"products "
+        + "; ".join(f"batch {i + 1} {r['batch_rel_fro']:.3e} (worst shard "
+                    f"{r['shard_max_rel_fro']:.3e})"
+                    for i, r in enumerate(rows))
+        + f" relative Frobenius from the float64 oracle (limit "
+        f"{BF16_PRODUCT_TOL}); {sum(r['estimates'] for r in rows)} "
+        f"estimates at most {max(r['bound_ratio'] for r in rows):.3f} of "
+        f"their weight bound (max sum |w| "
+        f"{max(r['max_sum_abs_w'] for r in rows):.4g}); checks "
+        f"{check_s:.1f} s ({CARD})")
+    errs = {}
+    for r in results:
+        for a in r.answers:
+            if a.kind == "deadline" and a.rel_err is not None:
+                errs.setdefault(a.t, []).append(a.rel_err)
+    for t, e in sorted(errs.items()):
+        log(f"  deadline {t:.1f}: mean rel err {float(np.mean(e)):.3e} over "
+            f"{len(e)} answers")
+    return {"code": code_name, "requests": requests, "wall_s": wall,
+            "wall_per_batch_s": wall / n_batches,
+            "float32_wall_per_batch_s": f32_wall / n_batches,
+            "phase4_float32_wall_per_batch_s": f32_batch,
+            "launches": launches,
+            "products_dtype": dtype, "batches": rows, "check_s": check_s}
+
+
+def _bf16_cluster(operands, f32: dict) -> dict:
+    """(b) Phase 13's L-SAC job (its CLUSTER_REQUESTS requests in batches of
+    phase 13's size, one batch of 4) at full width on CLUSTER_WORKERS
+    worker processes with SAC_CLUSTER_DEVICE_DTYPE=bfloat16, its trace
+    replayed here through ``ReplayBackend(compute="device")`` under the
+    same dtype; ``f32`` is phase 13's result, whose time is printed
+    beside."""
+    import numpy as np
+
+    from repro_torch.cluster.backend import ReplayBackend
+    from repro_torch.cluster.config import ClusterConfig, global_config
+    from repro_torch.cluster.events import TraceRecording
+    from repro_torch.launch.serve import CODES
+    out_dir = ROOT / "build" / "cluster_bf16"        # ignored by git
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace = str(out_dir / "trace.json")
+    n, batch = CLUSTER_REQUESTS, f32["batch"]
+    n_batches = -(-n // batch)
+    argv = CLUSTER_ARGS + ["--batch-size", str(batch), "--record", trace]
+    part = operands[:n]
+    saved = ClusterConfig()
+    saved.backup_from(global_config)
+    old_env = os.environ.get("SAC_CLUSTER_DEVICE_DTYPE")
+    os.environ["SAC_CLUSTER_DEVICE_DTYPE"] = "bfloat16"
+    global_config.backup_from(ClusterConfig())
+    try:
+        if global_config.device_dtype != "bfloat16":
+            fail("cluster: SAC_CLUSTER_DEVICE_DTYPE=bfloat16 not read")
+        _zero_launches()
+        t0 = time.perf_counter()
+        rep = _serve(argv, part)
+        total = time.perf_counter() - t0
+        master = _read_launches()
+        cl = rep["cluster"]
+        workers = cl["kernel_launches"]
+        if rep["summary"]["requests"] != n or cl["losses"]:
+            fail(f"bf16 cluster: served {rep['summary']['requests']} of {n},"
+                 f" losses {cl['losses']}")
+        if workers.get("coded_matmul_bf16", 0) < CLUSTER_WORKERS * n_batches \
+                or workers.get("coded_matmul") != workers.get(
+                    "coded_matmul_bf16"):
+            fail(f"bf16 cluster: the workers report {workers}, need "
+                 f"{CLUSTER_WORKERS * n_batches} bf16 coded_matmul launches "
+                 "and no other")
+        if master["coded_matmul"] != 0 or master["poly_encode"] <= 0:
+            fail(f"bf16 cluster: the master launched {master}")
+        # the replay, in this process, under the same dtype
+        code = CODES["lsac_ortho"].build(8, 24)
+        kept = []
+        recording = TraceRecording.load(trace)
+        replay = _keeping(ReplayBackend, kept)(recording, compute="device",
+                                               device="cuda")
+        sched = _bf16_sched(code, replay, batch, stream=True)
+        for A, B in part:
+            sched.submit(A, B)
+        t0 = time.perf_counter()
+        got = sched.run()
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        mine = [[(a.t, a.m, a.kind, a.rel_err) for a in r.answers]
+                for r in got]
+        if mine != _answers(rep["requests"]):
+            fail("bf16 cluster: the device replay's estimates differ from "
+                 "the cluster run's")
+    finally:
+        if old_env is None:
+            os.environ.pop("SAC_CLUSTER_DEVICE_DTYPE", None)
+        else:
+            os.environ["SAC_CLUSTER_DEVICE_DTYPE"] = old_env
+        global_config.backup_from(saved)
+    rows = []
+    for i, P in enumerate(kept):
+        times = recording.batches[i].times
+        order = np.array(sorted(times, key=times.get))  # arrival order
+        rows.append(_bf16_batch_checks(
+            code, P, part[i * batch:(i + 1) * batch], order,
+            [r for r in got if r.batch == i + 1]))
+    del kept
+    torch.cuda.empty_cache()
+    _bf16_check_products("bf16 cluster", rows)
+    s = rep["summary"]
+    log(f"bf16 cluster lsac_ortho 2048x32768 x{n} on {CLUSTER_WORKERS} "
+        f"workers (SAC_CLUSTER_DEVICE_DTYPE=bfloat16), batches of {batch}: "
+        f"{s['wall_s']:.2f} s serve loop = {s['wall_s'] / n_batches:.3f} s "
+        f"per batch (phase 13's float32 serve of the same batches: "
+        f"{f32['wall_per_batch_s']:.3f} s), fleet start "
+        f"{cl['startup_s']:.1f} s, {total:.1f} s in all; workers' launches "
+        f"{workers}, master's {master}; the replay (ReplayBackend "
+        f"compute=device, bfloat16, this process) bit-identical in "
+        f"{replay_s:.1f} s; products " + "; ".join(
+            f"batch {i + 1} {r['batch_rel_fro']:.3e}"
+            for i, r in enumerate(rows))
+        + f" relative Frobenius from the float64 oracle (limit "
+        f"{BF16_PRODUCT_TOL}); {sum(r['estimates'] for r in rows)} "
+        f"estimates at most {max(r['bound_ratio'] for r in rows):.3f} of "
+        f"their weight bound ({CARD})")
+    return {"wall_s": s["wall_s"], "wall_per_batch_s": s["wall_s"]
+            / n_batches, "startup_s": cl["startup_s"], "total_s": total,
+            "replay_s": replay_s,
+            "launches": {"coded_matmul": workers["coded_matmul_bf16"],
+                         "poly_encode": master["poly_encode"]},
+            "workers": workers, "master": master, "batches": rows}
+
+
+def _bf16_mesh(A, B) -> dict:
+    """(c) ``distributed_coded_matmul`` and ``decode_on_mesh(dtype=
+    torch.bfloat16)`` with NCCL at world size 1 on phase 4's first pair.
+    Each estimate ``est`` is held to the bound the bf16 roundings put on
+    its distance to the float64 ``Σ w_n P_n``: ``Σ |w̃_n| ‖P̃_n − P_n‖ +
+    Σ |w̃_n − w_n| ‖P_n‖ + (u + n·2^-24)·‖Σ |w̃_n| |P̃_n|‖`` (``~``: bf16
+    weights and products; the last term the weighted sum over the n
+    workers, accumulated in float32 and rounded to bf16 once)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core import split_contraction
+    from repro_torch.kernels import coded_matmul, worker_products
+    from repro_torch.launch.serve import CODES
+    from repro_torch.runtime.coded import (decode_weight_vector,
+                                           distributed_coded_matmul)
+    from repro_torch.serving import IncrementalDecoder, TorchDeviceBackend
+    code = CODES["lsac_ortho"].build(8, 24)
+    N, R = code.N, code.recovery_threshold
+    # the float64 encode on the card (decode_on_mesh encodes on the host,
+    # as the reference does)
+    G_A, G_B = (torch.as_tensor(G, device="cuda") for G in code.generator())
+    A_blocks, B_blocks = split_contraction(torch.from_numpy(A).cuda(),
+                                           torch.from_numpy(B).cuda(),
+                                           code.K)
+    ea64 = torch.einsum("nk,kij->nij", G_A, A_blocks)
+    eb64 = torch.einsum("nk,kij->nij", G_B, B_blocks)
+    del A_blocks, B_blocks
+    ea, eb = ea64.bfloat16(), eb64.bfloat16()
+    order = np.random.default_rng(DIST_ORDER_SEED).permutation(N)
+    w = decode_weight_vector(code, order, R)
+    _init_dist_world1(ROOT / "build" / "dist_store")
+    try:
+        _zero_launches()
+        est = distributed_coded_matmul(ea, eb, torch.as_tensor(
+            w, device="cuda").bfloat16())
+        torch.cuda.synchronize()
+        dist_launches = coded_matmul.bf16_launches
+        # an incremental decoder's exact state, decoded on the job path
+        P = worker_products(ea, eb)                 # the checks' (uncounted)
+        dec = IncrementalDecoder(code)
+        for n in np.random.default_rng(DIST_DECODER_SEED).permutation(N)[:R]:
+            dec.push(int(n), P[n])
+        wd = dec.weight_vector()
+        before = coded_matmul.bf16_launches
+        est2 = TorchDeviceBackend(device="cuda").decode_on_mesh(
+            code, A, B, wd, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        mesh_launches = coded_matmul.bf16_launches - before
+    finally:
+        dist.destroy_process_group()
+    if dist_launches != 1 or mesh_launches != 1:
+        fail(f"bf16 mesh job: {dist_launches} and {mesh_launches} bf16 "
+             "coded_matmul launches, need 1 each")
+    P64 = torch.bmm(ea64, eb64)
+    del ea64, eb64, ea, eb
+    Pd = P.double()
+    dP = torch.linalg.vector_norm(Pd - P64, dim=(-2, -1))
+    nP = torch.linalg.vector_norm(P64, dim=(-2, -1))
+    C = torch.from_numpy(A).cuda() @ torch.from_numpy(B).cuda()
+    rows = {}
+    for name, out, wv in (("distributed", est, w), ("decode_on_mesh", est2,
+                                                    wd)):
+        w64 = torch.as_tensor(wv, device="cuda", dtype=torch.float64)
+        wb = w64.bfloat16().double()
+        want = torch.einsum("w,wij->ij", w64, P64)
+        sum_abs = torch.einsum("w,wij->ij", wb.abs(), Pd.abs())
+        bound = float(wb.abs() @ dP + (wb - w64).abs() @ nP
+                      + (BF16_U + N * 2.0 ** -24)
+                      * torch.linalg.vector_norm(sum_abs))
+        dev_ = float(torch.linalg.vector_norm(out.double() - want))
+        rows[name] = {"dtype": str(out.dtype), "bound_ratio": dev_ / bound,
+                      "vs_float64_rel": dev_ / float(
+                          torch.linalg.vector_norm(want)),
+                      "vs_exact_rel": float(
+                          torch.linalg.vector_norm(out.double() - C)
+                          / torch.linalg.vector_norm(C)),
+                      "sum_abs_w": float(np.abs(wv).sum())}
+        if out.dtype != torch.bfloat16 or not rows[name]["bound_ratio"] <= 1:
+            fail(f"bf16 mesh job {name}: {out.dtype}, "
+                 f"{rows[name]['bound_ratio']:.3f} of its bound")
+    del P, Pd, P64, C, est, est2
+    torch.cuda.empty_cache()
+    log("bf16 mesh job (NCCL, world size 1, lsac_ortho K=8 N=24 on phase "
+        "4's first 2048x32768 pair): " + "; ".join(
+            f"{k}: 1 bf16 coded_matmul launch, {r['vs_float64_rel']:.3e} "
+            f"from float64 sum w_n P_n ({r['bound_ratio']:.3f} of its bound,"
+            f" sum |w| {r['sum_abs_w']:.4g}), {r['vs_exact_rel']:.3e} from "
+            "A@B" for k, r in rows.items()))
+    return {"launches": {"coded_matmul": dist_launches + mesh_launches,
+                         "poly_encode": 0}, **rows}
+
+
+def phase_bf16(operands, lsac: dict, gsac: dict, cluster: dict) -> dict:
+    """Phase 18: bf16 worker products on the device paths (module note)."""
+    from repro_torch.serving import TorchDeviceBackend, make_backend
+    t_phase = time.perf_counter()
+    be = make_backend("device", device="cuda", dtype="bfloat16")
+    if not isinstance(be, TorchDeviceBackend) or be.dtype != torch.bfloat16:
+        fail("make_backend('device', dtype='bfloat16') did not pass the "
+             "dtype through")
+    f32 = {"lsac_ortho": lsac, "gsac_k1_5": gsac}
+    out = {name: _bf16_serve(name, req, per, operands, f32[name])
+           for name, req, per in BF16_SERVES}
+    out["cluster"] = _bf16_cluster(operands, cluster)
+    out["mesh"] = _bf16_mesh(*operands[0])
+    out["total_s"] = time.perf_counter() - t_phase
+    log(f"bf16 phase: {out['total_s']:.1f} s ({CARD})")
+    return out
+
+
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4728,6 +5159,7 @@ def main(argv=None) -> int:
     cluster = phase_cluster(lsac, paper_ops)
     coded_runtime = phase_coded_runtime(paper_ops)
     mesh = phase_mesh(dev, paper_ops[0])
+    bf16 = phase_bf16(paper_ops, lsac, gsac, cluster)
     del paper_ops
     train_k = phase_train_kernels(dev, gen)
 
@@ -4757,10 +5189,14 @@ def main(argv=None) -> int:
             "distributed": coded_runtime}
     mm32, enc_main = mm["float32"], enc["batch_rows24"]
     mesh_runs = mesh["launches"]
+    bf16_runs = {f"bf16_{k}": bf16[k]["launches"]["coded_matmul"]
+                 for k in ("lsac_ortho", "gsac_k1_5", "cluster", "mesh")}
     coded_runs = {**{k: r["launches"]["coded_matmul"]
                      for k, r in runs.items()},
                   **{f"mesh_{k}": v["coded_matmul"]
-                     for k, v in mesh_runs.items() if "coded_matmul" in v}}
+                     for k, v in mesh_runs.items() if "coded_matmul" in v},
+                  **bf16_runs}
+    mm16 = mm["bfloat16"]
     kernels = [
         {"name": "coded_matmul", "status": "ported", "route": "cuda",
          "source": "src/repro_torch/csrc/coded_matmul.cu",
@@ -4770,7 +5206,14 @@ def main(argv=None) -> int:
          "shape": mm32["shape"], "max_abs_err": mm32["max_abs_err"],
          "ms": mm32["ms"], "plain_ms": mm32["plain_ms"],
          "bound_ms": mm32["bound_ms"], "bound_by": mm32["bound_by"],
-         "library_ms": mm32["library_ms"]},
+         "library_ms": mm32["library_ms"],
+         # the bf16 instance (coded_matmul_simt_kernel): its row of phase 2
+         # and its launches (the bf16_* runs of launches_by_run)
+         "bfloat16": {"kernel": "coded_matmul_simt_kernel",
+                      "launches": sum(bf16_runs.values()),
+                      **{k: mm16[k] for k in (
+                          "shape", "max_abs_err", "ms", "plain_ms",
+                          "bound_ms", "bound_by", "library_ms")}}},
         {"name": "poly_encode", "status": "ported", "route": "cuda",
          "source": "src/repro_torch/csrc/poly_encode.cu",
          "replaces": "src/repro/kernels/poly_encode/kernel.py:41",
@@ -4870,7 +5313,7 @@ def main(argv=None) -> int:
              "open_loop": open_loop, "autotune": autotune,
              "engine": engine, "cluster": cluster,
              "coded_runtime": coded_runtime, "mesh": mesh,
-             "train_kernels": train_k, "kernels": kernels},
+             "train_kernels": train_k, "bf16": bf16, "kernels": kernels},
             indent=2))
     print(card)
     print(json.dumps({"kernels": kernels, "not_ported": []}))

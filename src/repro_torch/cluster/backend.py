@@ -28,12 +28,13 @@ the pool's ``compute`` recipe.  Every combination of
 * ``compute="device"`` — the master encodes on its own device through
   :meth:`~repro_torch.serving.backends.ExecutionBackend._encode_batch`
   (the ``poly_encode`` kernel on the card) and publishes the float32
-  stacks (complex64 for complex points): the workers compute in float32
-  anyway, and float32 is half the bytes of float64 in shared memory and on
-  the socket.  :class:`ReplayBackend` with ``compute="device"`` runs the
-  same encode and the same :class:`~repro_torch.cluster.worker
-  .TorchShardComputer` path, so a device trace replays bit for bit inside
-  the port.
+  stacks (complex64 for complex points): the workers compute in float32,
+  or round them to bf16 on their card (``SAC_CLUSTER_DEVICE_DTYPE=
+  bfloat16``), and float32 is half the bytes of float64 in shared memory
+  and on the socket.  :class:`ReplayBackend` with ``compute="device"``
+  runs the same encode and the same :class:`~repro_torch.cluster.worker
+  .TorchShardComputer` path in the same dtype, so a device trace replays
+  bit for bit inside the port under the same ``SAC_CLUSTER_DEVICE_DTYPE``.
 
 Worker products arrive as host arrays and become tensors on the backend's
 :attr:`device`, where the scheduler keeps operands and decode state.
@@ -545,7 +546,9 @@ class ReplayBackend(SimulatedBackend):
     recomputes every per-shard product through the *same*
     :class:`~repro_torch.cluster.worker.TorchShardComputer` path the
     workers ran (on ``device``'s type, pinned per shard as the pool pins
-    its first lease), so device-mode traces replay bit-identically too.
+    its first lease, in the dtype ``SAC_CLUSTER_DEVICE_DTYPE`` names), so
+    device-mode traces replay bit-identically too under the recorded run's
+    dtype.
     """
 
     name = "replay"

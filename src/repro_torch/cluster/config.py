@@ -51,9 +51,9 @@ class ClusterConfig:
         # them).  The reference reads the same variable as its number of
         # virtual XLA devices per CPU host.
         self.host_device_count: int = _env_int("SAC_CLUSTER_HOST_DEVICES", 8)
-        # dtype the device path computes in, read for parity with the
-        # reference: the port's device compute runs in float32 only, and a
-        # ComputeSpec built from any other value raises
+        # dtype the device path computes in: "float32" | "bfloat16" (a
+        # ComputeSpec built from any other value raises; the reference's
+        # kernel would also take float16, which no configuration uses)
         self.device_dtype: str = _env_str("SAC_CLUSTER_DEVICE_DTYPE",
                                           "float32")
 

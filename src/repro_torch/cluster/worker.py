@@ -34,9 +34,10 @@ fresh ids past the doomed ranges, so a replaced crasher serves correctly.
   to ``cuda:{wid % device_count}`` unless its spec names ``cpu`` (then the
   kernel's plain version runs).  Complex evaluation points take the
   four-launch ``worker_products_complex``; the card never sees a complex
-  dtype.  The result comes back to the host in the compute dtype
-  (float32), so the worker's ``compute`` time covers the launches to their
-  end.
+  dtype.  The compute dtype is the spec's (``SAC_CLUSTER_DEVICE_DTYPE``:
+  float32 or bfloat16).  The result comes back to the host as float32
+  (bf16 products widened on the card, exactly: numpy has no bfloat16), so
+  the worker's ``compute`` time covers the launches to their end.
 
 A worker that cannot build its computer, reach its card, load the kernel or
 launch it does not fall back: it reports the failure to the master
@@ -58,7 +59,7 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 
-from ..names import unknown_name
+from ..names import compute_dtype_name, unknown_name
 from .config import global_config
 
 __all__ = ["ChaosSpec", "WorkerPlan", "ShardComputer", "NumpyShardComputer",
@@ -159,14 +160,15 @@ class ComputeSpec:
     against it).  ``device`` is ``"cuda"`` (the default: the card) or
     ``"cpu"`` (the kernel's plain version, for tests).  The pool stamps
     ``device_index`` per worker (``wid % host_device_count``); the worker
-    itself reduces it modulo the cards it sees.  Device compute runs in
-    float32 only.
+    itself reduces it modulo the cards it sees.  ``dtype`` is what device
+    compute runs in, ``"float32"`` or ``"bfloat16"``.
     """
 
     kind: str = "device"
     device: str = "cuda"
     device_index: int = 0
     host_device_count: int = 8
+    dtype: str = "float32"
 
     @staticmethod
     def parse(spec: "ComputeSpec | str | None",
@@ -182,12 +184,9 @@ class ComputeSpec:
         if device not in ("cuda", "cpu"):
             raise ValueError(f"unsupported compute device {device!r}; use "
                              "'cuda' or 'cpu'")
-        if cfg.device_dtype != "float32":
-            raise ValueError(f"SAC_CLUSTER_DEVICE_DTYPE must be float32 (the "
-                             f"dtype device compute runs in); got "
-                             f"{cfg.device_dtype!r}")
         return ComputeSpec(kind=kind, device=device,
-                           host_device_count=cfg.host_device_count)
+                           host_device_count=cfg.host_device_count,
+                           dtype=compute_dtype_name(cfg.device_dtype))
 
     def for_worker(self, wid: int) -> "ComputeSpec":
         """This spec pinned to worker ``wid``'s device."""
@@ -241,17 +240,20 @@ class TorchShardComputer(ShardComputer):
 
     The shard slice folds the batch axis into the kernel's worker axis
     (``(B, Nx, bz) @ (B, bz, Ny)``), the ``TorchDeviceBackend`` layout.
-    Each operand slice is copied into a fresh float32 device tensor, so the
-    kernel sees the same aligned layout in a worker and in a replay.
-    Complex operands take the four-launch ``worker_products_complex``; the
-    result comes back as a contiguous host array (float32, or complex64 for
-    complex points).  ``device="cuda"`` raises without a card: there is no
-    CPU fallback.
+    Each operand slice is copied into a fresh float32 device tensor and,
+    with ``dtype="bfloat16"``, rounded to bf16 there, so the kernel sees
+    the same aligned layout in a worker and in a replay.  Complex operands
+    take the four-launch ``worker_products_complex``; the result comes back
+    as a contiguous host array (float32, or complex64 for complex points;
+    bf16 products are widened to float32 on the device first, which is
+    exact).  ``device="cuda"`` raises without a card: there is no CPU
+    fallback.
     """
 
     name = "device"
 
-    def __init__(self, device: str = "cuda", device_index: int = 0):
+    def __init__(self, device: str = "cuda", device_index: int = 0,
+                 dtype: str = "float32"):
         import torch
 
         from ..kernels.coded_matmul import ops
@@ -269,15 +271,15 @@ class TorchShardComputer(ShardComputer):
         elif dev.type != "cpu":
             raise ValueError(f"unsupported compute device {device!r}")
         self.device = dev
-        self._base = 0
+        self.dtype = getattr(torch, compute_dtype_name(dtype))
+        self._base = self._bf16_base = 0
 
     def _put(self, x: np.ndarray):
         host = np.ascontiguousarray(x, dtype=np.float32)
-        return self._torch.from_numpy(host).to(self.device)
+        return self._torch.from_numpy(host).to(self.device).to(self.dtype)
 
-    @staticmethod
-    def _get(t) -> np.ndarray:
-        return t.cpu().numpy()
+    def _get(self, t) -> np.ndarray:
+        return t.to(self._torch.float32).cpu().numpy()
 
     def shard_products(self, E_A, E_B, shard):
         n = int(shard)
@@ -297,9 +299,16 @@ class TorchShardComputer(ShardComputer):
         one = np.ones((1, 1, 1, 1), np.float32)
         self.shard_products(one, one, 0)
         self._base = self._ops.coded_matmul.launches
+        self._bf16_base = self._ops.coded_matmul.bf16_launches
 
     def counters(self) -> dict:
-        return {"coded_matmul": self._ops.coded_matmul.launches - self._base}
+        """``coded_matmul`` launches, and in bf16 also ``coded_matmul_bf16``
+        (the bf16 instance's, the same launches)."""
+        mm = self._ops.coded_matmul
+        out = {"coded_matmul": mm.launches - self._base}
+        if self.dtype == self._torch.bfloat16:
+            out["coded_matmul_bf16"] = mm.bf16_launches - self._bf16_base
+        return out
 
 
 def make_computer(spec: ComputeSpec | str | None) -> ShardComputer:
@@ -308,7 +317,8 @@ def make_computer(spec: ComputeSpec | str | None) -> ShardComputer:
     if spec.kind == "numpy":
         return NumpyShardComputer()
     return TorchShardComputer(device=spec.device,
-                              device_index=spec.device_index)
+                              device_index=spec.device_index,
+                              dtype=spec.dtype)
 
 
 # ------------------------------------------------------------- entry point

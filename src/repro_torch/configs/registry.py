@@ -1,4 +1,5 @@
-"""Architecture registry of the port: ``get_arch(name, smoke)``.
+"""Architecture registry of the port: ``get_arch(name, smoke)`` and the
+paper's §V job (``PAPER_JOB``).
 
 Counterpart of the reference's ``configs/registry.py``: the same eleven
 architectures, whose configuration modules are copies of the reference's,
@@ -8,13 +9,15 @@ not know.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 from . import (falcon_mamba_7b, gemma_2b, hymba_1_5b, kimi_k2_1t_a32b,
                llava_next_mistral_7b, minicpm_2b, musicgen_large,
                qwen15_32b, qwen25_3b, qwen2_moe_a27b, repro_100m)
 from .base import SHAPES, ArchConfig, ShapeSpec
 
-__all__ = ["ARCH_NAMES", "PORTED_FAMILIES", "get_arch", "get_shape",
-           "check_family", "cells"]
+__all__ = ["ARCH_NAMES", "PORTED_FAMILIES", "PAPER_JOB", "PaperJobConfig",
+           "get_arch", "get_shape", "check_family", "cells"]
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -69,3 +72,20 @@ def cells(include_skips: bool = False):
                 continue
             out.append((a, s, "skip:full-attention" if skip else "run"))
     return out
+
+
+# --------------------------------------------------------- paper's workload
+
+@dataclass(frozen=True)
+class PaperJobConfig:
+    """The paper's §V experiment: 100×8000 @ 8000×100 over N=24 workers."""
+    Nx: int = 100
+    Nz: int = 8000
+    Ny: int = 100
+    K: int = 8
+    N: int = 24
+    trials: int = 100
+    eps_complex: float = 0.1        # Fig 3a X_complex magnitude
+
+
+PAPER_JOB = PaperJobConfig()

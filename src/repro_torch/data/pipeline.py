@@ -7,10 +7,10 @@ the step), and (b) every data-parallel shard draws a disjoint stream.
 
 Counterpart of the reference's ``data/pipeline.py``: ``__call__`` and
 ``batch_shape`` are its host numpy code, so both packages draw the same
-tokens.  :func:`make_batch_specs` gives the dry run one global batch's
-shapes.  The reference's in-graph variant ``jit_batch`` (threefry, for its
-fused train driver) has no counterpart: nothing on the port's training
-path calls it.
+tokens.  :meth:`SyntheticTokens.jit_batch` is the device-side batch (the
+reference's in-graph threefry variant), drawn by a ``torch.Generator``
+on the device; nothing on the training path calls it, in either package.
+:func:`make_batch_specs` gives the dry run one global batch's shapes.
 """
 from __future__ import annotations
 
@@ -45,6 +45,32 @@ class SyntheticTokens:
             batch["vision_embeds"] = rng.standard_normal(
                 (self.global_batch, self.vision_tokens, self.d_model)
             ).astype(np.float32)
+        return batch
+
+    def jit_batch(self, step: int, device=None) -> dict:
+        """Device-side batch for ``step``: the reference's in-graph variant,
+        with its shapes, dtypes (int32 tokens, float32 vision embeds) and
+        ranges, drawn on ``device`` (the card unless ``"cpu"``).
+
+        A ``torch.Generator`` on the device is seeded from ``(seed, step)``,
+        so the same pair gives the same batch on the same device and other
+        steps differ.  The bits are torch's (Philox on the card), not
+        threefry's: the batch equals neither the reference's ``jit_batch``
+        nor :meth:`__call__`'s host draw.
+        """
+        import torch
+
+        from ..device import resolve_device
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(((int(self.seed) << 20) ^ int(step)) % (1 << 63))
+        batch = {"tokens": torch.randint(
+            0, self.vocab_size, self.batch_shape(), generator=gen,
+            device=dev, dtype=torch.int32)}
+        if self.vision_tokens:
+            batch["vision_embeds"] = torch.randn(
+                (self.global_batch, self.vision_tokens, self.d_model),
+                generator=gen, device=dev, dtype=torch.float32)
         return batch
 
 

@@ -11,7 +11,8 @@ the card and the designs.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel or raises — there is no fallback.  :func:`coded_matmul` counts
-its launches in ``coded_matmul.launches``.  Complex evaluation points run
+its launches in ``coded_matmul.launches``, and those of the bf16 instance
+also in ``coded_matmul.bf16_launches``.  Complex evaluation points run
 as four launches into two outputs (``re = ArBr − AiBi``, ``im = ArBi +
 AiBr``), accumulating in place with no temporaries.
 """
@@ -107,10 +108,13 @@ def coded_matmul(E_A: torch.Tensor, E_B: torch.Tensor,
                 int(accumulate), stream)
     check(lib, rc, "coded_matmul")
     coded_matmul.launches += 1
+    if E_A.dtype == torch.bfloat16:
+        coded_matmul.bf16_launches += 1
     return out
 
 
 coded_matmul.launches = 0
+coded_matmul.bf16_launches = 0
 
 
 def worker_products(E_A: torch.Tensor, E_B: torch.Tensor) -> torch.Tensor:

@@ -36,7 +36,7 @@ from ..core.straggler import (sample_times, shifted_exp_times,
                               validate_latency_kw)
 from ..device import resolve_device
 from ..kernels import poly_encode, worker_products, worker_products_complex
-from ..names import unknown_name
+from ..names import compute_dtype_name, unknown_name
 from ..runtime.coded import distributed_coded_matmul, encode_operands
 
 __all__ = ["ExecutionBackend", "SyntheticDispatch", "SimulatedBackend",
@@ -274,18 +274,29 @@ class TorchDeviceBackend(ExecutionBackend):
     (``(B·N, Nx, bz) @ (B·N, bz, Ny)``) so one launch covers the whole
     batch; complex evaluation points go through
     :func:`~repro_torch.kernels.worker_products_complex` (four launches) and
-    come back as one complex tensor.  The kernels take float32 operands, as
-    the reference's device backend does.  Latencies reuse the simulated
-    model, drawn exactly as the reference ``DeviceBackend`` draws them.
+    come back as one complex tensor.  Latencies reuse the simulated model,
+    drawn exactly as the reference ``DeviceBackend`` draws them.
     :meth:`decode_on_mesh` runs one job through the process-group path.
+
+    ``dtype`` is the worker products' compute dtype, as the reference's:
+    ``None`` or float32 (the default), or bfloat16 (``torch`` dtypes or
+    their names); any other raises ``ValueError``.  The encode stays
+    float32 (one ``poly_encode`` launch an operand); in bf16 each encoded
+    stack is then rounded to bf16 once and the products run in the bf16
+    kernel instance (float32 accumulator, bf16 output).  The reference
+    rounds its float64 encode to bf16 once; the float32 step between
+    differs from that only at ties.  Real points return bf16 products,
+    complex points complex64 of the widened bf16 parts (exact): the
+    decoders widen either to float64.
     """
 
     name = "device"
 
-    def __init__(self, *, device=None, shift: float = 1.0, rate: float = 1.0,
-                 straggler_frac: float = 0.0,
+    def __init__(self, *, device=None, dtype=None, shift: float = 1.0,
+                 rate: float = 1.0, straggler_frac: float = 0.0,
                  straggler_slowdown: float = 5.0):
         super().__init__(device)
+        self.dtype = getattr(torch, compute_dtype_name(dtype))
         self.latency_kw = {"shift": shift, "rate": rate,
                            "straggler_frac": straggler_frac,
                            "straggler_slowdown": straggler_slowdown}
@@ -298,41 +309,43 @@ class TorchDeviceBackend(ExecutionBackend):
         B, N = ea.shape[:2]
 
         def fold(t):
-            return t.reshape((B * N,) + tuple(t.shape[2:]))
+            return t.reshape((B * N,) + tuple(t.shape[2:])).to(self.dtype)
 
         if ea_im is None:
             P = worker_products(fold(ea), fold(eb))
         else:
             re, im = worker_products_complex(fold(ea), fold(ea_im), fold(eb),
                                              fold(eb_im))
-            P = torch.complex(re, im)
+            P = torch.complex(re.float(), im.float())
         return P.reshape((B, N) + tuple(P.shape[1:]))
 
     def draw_latencies(self, rng: np.random.Generator,
                        N: int) -> np.ndarray:
         return shifted_exp_times(rng, N, **self.latency_kw)
 
-    def decode_on_mesh(self, code: CDCCode, A, B, weights,
-                       group=None) -> torch.Tensor:
+    def decode_on_mesh(self, code: CDCCode, A, B, weights, group=None,
+                       dtype=None) -> torch.Tensor:
         """End-to-end device decode: a weighted all-reduce over the ranks
         of ``group`` (``None``: the world), through
         :func:`~repro_torch.runtime.coded.distributed_coded_matmul` on this
         backend's device.
 
         ``A``, ``B`` are encoded on the host in float64, as the reference
-        does, then cast to float32 (the kernels' operand type here, as in
-        :meth:`compute_products`).  ``weights`` is the incremental
-        decoder's current :meth:`~repro_torch.serving.incremental.
-        IncrementalDecoder.weight_vector` (real — complex weights are
-        rejected)."""
+        does; the encoded stacks and the weights are then cast to ``dtype``
+        (``None``: float32; bfloat16 runs the bf16 kernel instance, and the
+        weighted sum and the all-reduce stay in bf16, as the reference's
+        ``psum``).  ``weights`` is the incremental decoder's current
+        :meth:`~repro_torch.serving.incremental.IncrementalDecoder
+        .weight_vector` (real — complex weights are rejected)."""
         if np.iscomplexobj(np.asarray(weights)):
             raise ValueError("complex decode weights cannot enter the real "
                              "mesh job path; use a real-point code")
+        dt = getattr(torch, compute_dtype_name(dtype))
         A_blocks, B_blocks = split_contraction(_host(A), _host(B), code.K)
         E_A, E_B = encode_operands(code, A_blocks, B_blocks)
 
         def put(x):
-            return torch.as_tensor(x).to(torch.float32).to(self.device)
+            return torch.as_tensor(x).to(dt).to(self.device)
 
         return distributed_coded_matmul(put(E_A), put(E_B),
                                         put(np.asarray(weights)), group=group)

@@ -220,6 +220,34 @@ def test_torch_shard_computer_matches_reference_device_computer(family,
     assert port.counters() == {"coded_matmul": 0}
 
 
+@pytest.mark.parametrize("family,make_code", FAMILIES, ids=FAMILY_IDS)
+def test_bf16_shard_computer_matches_reference_device_computer(family,
+                                                               make_code):
+    """``TorchShardComputer(device="cpu", dtype="bfloat16")`` against the
+    reference's ``DeviceShardComputer(dtype="bfloat16")`` on the same
+    shards, to the reference's bf16 kernel tolerance (``rtol`` 5e-2,
+    ``atol`` 5e-2·√Z).  The port ships the bf16 products widened to float32
+    (complex64 for complex points)."""
+    code, (E_A, E_B) = _encoded(make_code)
+    ref = ref_worker.DeviceShardComputer(device_index=0, host_device_count=0,
+                                         use_pallas=False, dtype="bfloat16")
+    port = TorchShardComputer(device="cpu", dtype="bfloat16")
+    port.warmup()
+    Z = E_A.shape[-1]
+    for shard in range(code.N):
+        want = np.asarray(ref.shard_products(E_A, E_B, shard))
+        got = port.shard_products(E_A, E_B, shard)
+        cplx = np.iscomplexobj(E_A)
+        assert got.dtype == (np.complex64 if cplx else np.float32)
+        assert got.shape == want.shape and got.flags.c_contiguous
+        want = want.astype(np.complex128 if cplx else np.float64)
+        np.testing.assert_allclose(got, want, rtol=5e-2, atol=5e-2 * Z ** 0.5,
+                                   err_msg=f"{family} shard {shard}")
+    assert port.counters() == {"coded_matmul": 0, "coded_matmul_bf16": 0}
+    with pytest.raises(ValueError, match="'float16'"):
+        TorchShardComputer(device="cpu", dtype="float16")
+
+
 def test_compute_spec_pins_workers_and_rejects_unknown(monkeypatch):
     spec = ComputeSpec.parse("device", device="cpu")
     assert (spec.kind, spec.device) == ("device", "cpu")
@@ -232,9 +260,13 @@ def test_compute_spec_pins_workers_and_rejects_unknown(monkeypatch):
         ComputeSpec.parse("gpu")
     with pytest.raises(ValueError, match="unsupported compute device"):
         ComputeSpec.parse("device", device="tpu")
-    # the dtype variable is read for parity, but device compute is float32
+    # the dtype variable sets the compute dtype: float32 or bfloat16
+    assert spec.dtype == "float32"
     monkeypatch.setattr(global_config, "device_dtype", "bfloat16")
-    with pytest.raises(ValueError, match="must be float32.*'bfloat16'"):
+    bf = ComputeSpec.parse("device", device="cpu")
+    assert bf.dtype == "bfloat16" and bf.for_worker(3).dtype == "bfloat16"
+    monkeypatch.setattr(global_config, "device_dtype", "float16")
+    with pytest.raises(ValueError, match="compute dtype 'float16'; valid: float32, bfloat16"):
         ComputeSpec.parse("device", device="cpu")
 
 

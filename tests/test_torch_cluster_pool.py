@@ -233,6 +233,31 @@ def test_device_compute_record_replay_bit_identity():
     assert live != host
 
 
+def test_bf16_device_compute_record_replay_bit_identity(monkeypatch):
+    """``SAC_CLUSTER_DEVICE_DTYPE=bfloat16``: the workers compute their
+    shards in bf16 (the plain version on the CPU) and ship them widened;
+    the trace replays bit for bit through a device replay under the same
+    dtype, and not under float32, so the dtype is part of the replay."""
+    from repro_torch.cluster.config import global_config
+    code = code_from_reference(CODES4["lsac_ortho"]())
+    reqs = _reqs(np.random.default_rng(37), 2)
+    cfg = ServeConfig(deadlines=(1.0,), stream=True, batch_size=2, seed=0)
+    monkeypatch.setattr(global_config, "device_dtype", "bfloat16")
+    with cluster(workers=4, chaos="sleep:0.005:0.02", seed=9, record=True,
+                 compute="device") as be:
+        assert be.pool.compute.dtype == "bfloat16"
+        live = _serve(MasterScheduler(code, be, cfg), reqs)
+        rec = be.recording
+    counters = be.pool.worker_counters
+    assert counters and all(c == {"coded_matmul": 0, "coded_matmul_bf16": 0}
+                            for c in counters.values())
+    assert live == _serve(MasterScheduler(code, ReplayBackend(
+        rec, compute="device", device="cpu"), cfg), reqs)
+    monkeypatch.setattr(global_config, "device_dtype", "float32")
+    assert live != _serve(MasterScheduler(code, ReplayBackend(
+        rec, compute="device", device="cpu"), cfg), reqs)
+
+
 def test_port_trace_replays_through_reference_replay_backend(tmp_path):
     """Across packages: a port recording (numpy compute) saved to a file and
     replayed through the reference's ``ReplayBackend`` and scheduler gives

@@ -291,6 +291,44 @@ def test_decode_on_mesh_matches_reference(world1):
             code, A, B, w.astype(np.complex128))
 
 
+def test_decode_on_mesh_bf16_matches_reference(world1):
+    """The same job in bf16 (``dtype=torch.bfloat16`` against the
+    reference's ``dtype=jnp.bfloat16``): the encoded stacks and weights
+    rounded to bf16, the products in the bf16 kernel instance (its plain
+    version here), the weighted sum and the all-reduce in bf16.  Held to
+    1e-2 relative of the reference's (bf16 rounds at 2^-9; a few roundings
+    stay far inside), and its distance to ``A @ B`` to the bound the bf16
+    roundings put on it: ``Σ |w̃_n| ‖P̃_n − P_n‖ + Σ |w̃_n − w_n| ‖P_n‖``
+    (``~`` the bf16 weights and products) plus one bf16 rounding of each
+    output element."""
+    code = MatDotCode(3, 8, chebyshev_roots(8))
+    ref_code = RefMatDot(3, 8, ref_cheb(8))
+    rng = np.random.default_rng(5)
+    A = rng.standard_normal((16, 48))
+    B = rng.standard_normal((48, 12))
+    P = code.run_workers(A, B)
+    dec = IncrementalDecoder(code)
+    for n in range(8):
+        dec.push(n, torch.from_numpy(P[n]))
+    w = dec.weight_vector()
+    got = TorchDeviceBackend(device="cpu").decode_on_mesh(
+        code, A, B, w, dtype=torch.bfloat16)
+    want = RefDeviceBackend.decode_on_mesh(
+        ref_code, A, B, w, make_mesh((1,), ("model",)), use_pallas=False,
+        dtype=jnp.bfloat16)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (16, 12)
+    got = got.double().numpy()
+    assert _rel(got, np.asarray(want).astype(np.float64)) < 1e-2
+    E_A, E_B = coded.encode_operands(code, *split_contraction(A, B, 3))
+    Pb = torch.bmm(torch.as_tensor(E_A).bfloat16().float(),
+                   torch.as_tensor(E_B).bfloat16().float()).bfloat16()
+    wb = torch.as_tensor(w).bfloat16().double().numpy()
+    dP = np.linalg.norm(Pb.double().numpy() - P, axis=(1, 2))
+    bound = np.abs(wb) @ dP + np.abs(wb - w) @ np.linalg.norm(P, axis=(1, 2))
+    bound += 2.0 ** -8 * np.linalg.norm(got)
+    assert np.linalg.norm(got - A @ B) <= bound
+
+
 def test_distributed_coded_matmul_needs_a_process_group():
     _, _, E_A, E_B, ws = _job()
     if dist.is_initialized():

@@ -678,6 +678,49 @@ def test_cluster_on_the_card_matches_sim(cuda):
     assert be.pool.kernel_launches() == {"coded_matmul": 4 * code.N}
 
 
+@pytest.mark.parametrize("code_name", ["lsac_ortho", "gsac_k1_5"])
+def test_device_backend_bf16_on_the_card_matches_cpu(cuda, code_name):
+    """``TorchDeviceBackend(dtype=torch.bfloat16)``: the bf16 kernel's
+    products against the same backend's plain version on the CPU (bf16
+    tolerance, atol scaled by the contraction length), one bf16 launch a
+    batch (four for complex points)."""
+    from repro_torch.launch.serve import CODES
+    from repro_torch.serving import TorchDeviceBackend
+    code = CODES[code_name].build(8, 24)
+    As, Bs = zip(*_cluster_reqs(np.random.default_rng(4), 2, inner=200 * 8))
+    before = coded_matmul.bf16_launches
+    got = TorchDeviceBackend(device=cuda, dtype=torch.bfloat16) \
+        .compute_products(code, As, Bs)
+    assert coded_matmul.bf16_launches == before + (
+        4 if code_name.startswith("gsac") else 1)
+    want = TorchDeviceBackend(device="cpu", dtype=torch.bfloat16) \
+        .compute_products(code, As, Bs)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if not got.is_complex():
+        got, want = got.float(), want.float()
+    torch.testing.assert_close(got.cpu(), want, rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"] * 200 ** 0.5)
+
+
+def test_bf16_shard_computer_on_the_card_matches_cpu(cuda):
+    """A bf16 worker's shard products on the card against the CPU plain
+    version; its counters show the bf16 launches."""
+    from repro_torch.cluster import TorchShardComputer
+    rng = np.random.default_rng(5)
+    E_A = rng.standard_normal((2, 3, 40, 96))
+    E_B = rng.standard_normal((2, 3, 96, 40))
+    card = TorchShardComputer(device="cuda", dtype="bfloat16")
+    card.warmup()
+    host = TorchShardComputer(device="cpu", dtype="bfloat16")
+    for shard in range(3):
+        got = card.shard_products(E_A, E_B, shard)
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, host.shard_products(E_A, E_B, shard),
+                                   rtol=TOL["bfloat16"],
+                                   atol=TOL["bfloat16"] * 96 ** 0.5)
+    assert card.counters() == {"coded_matmul": 3, "coded_matmul_bf16": 3}
+
+
 def test_cluster_device_record_replay_bit_identity_on_the_card(cuda):
     from repro_torch.cluster.backend import ClusterBackend, ReplayBackend
     from repro_torch.core import LayerSACCode

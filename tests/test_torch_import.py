@@ -29,7 +29,13 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.kernels",
            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
            "repro_torch.models.hints", "repro_torch.runtime.sharding",
            "repro_torch.analysis.roofline", "repro_torch.analysis.op_walk",
-           "repro_torch.analysis.report", "repro_torch.data.pipeline"]
+           "repro_torch.analysis.report", "repro_torch.data.pipeline",
+           "repro_torch.examples.quickstart",
+           "repro_torch.examples.coded_matmul_service",
+           "repro_torch.examples.autotune_service",
+           "repro_torch.examples.train_lm_coded",
+           "repro_torch.examples.fault_tolerance",
+           "repro_torch.tools.sac_top"]
 
 
 def test_port_import_loads_no_jax_and_no_reference():
