@@ -10,13 +10,18 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
 1. Build the four kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once) and print the compiler's registers and spills for
    every kernel instance; the main path's tensor-core instances must not
-   spill (checked at the end, with the serve's accuracy).
+   spill (checked at the end, with the serve's accuracy).  The bf16
+   worker products' SASS (``cuobjdump -sass``) must hold warpgroup
+   products (HGMMA) and TMA loads (UTMALDG).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at the non-divisible sweep shapes of the tests,
    with the reference's tolerance (the float32 worker products also to
-   1e-5 relative Frobenius of the 3xTF32 emulation); time kernel, plain
-   version and one library call with CUDA events, beside the card's bound
-   and the kernel's earlier time.
+   1e-5 relative Frobenius of the 3xTF32 emulation; every bf16 shape whose
+   rows TMA can address on the ``wgmma`` instance, the others on the
+   CUDA-core one, by their counters); time kernel, plain version and one
+   library call with CUDA events, beside the card's bound; the bf16
+   CUDA-core instance also at the main shape on a view 2 bytes off
+   16-byte alignment.
 3. A small serve on the card against the same serve with the plain
    versions on the CPU: same answer stream, agreeing errors.
 4. Serve at full width through ``run_serve`` (2048 x 32768 operands, K=8,
@@ -24,7 +29,8 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
    the CLI's seed while phase 1 builds; phase 13 serves them too), and the
    CLI default
    G-SAC [5, 3] (complex points, the four-GEMM path) for 4.  The kernels'
-   launch counts are zeroed just before each run and must grow in it.
+   launch counts are zeroed just before each run and must grow in it;
+   the bf16 CUDA-core instance's must stay 0 (as in phases 13 and 18).
 5. Profile one full-width L-SAC batch and print device time by kernel.
 6. The language model's kernels against their plain versions on the card:
    flash attention at the sweep shapes and at hymba-1.5b's prefill
@@ -204,8 +210,9 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
     L-SAC job (8 requests) and G-SAC job (4, the four-launch complex
     path) through ``MasterScheduler`` on ``TorchDeviceBackend(dtype=
     torch.bfloat16)`` (the float32 encode, each stack rounded to bf16
-    once, the bf16 ``coded_matmul`` instance), the bf16 launches zeroed
-    before each run and counted (1 a batch, 4 for G-SAC), each batch's
+    once, the bf16 ``coded_matmul`` instance on ``wgmma``), the bf16
+    launches zeroed before each run and counted (1 a batch, 4 for G-SAC,
+    none on the CUDA-core instance), each batch's
     products within 1e-2 relative Frobenius of the float64 oracle's and
     each estimate within the bound its decode weights put on the product
     errors, the serve loop per batch beside phase 4's float32 serve; (b)
@@ -271,11 +278,19 @@ FLASH_LONG_TOL = 1e-2
 FLASH_ROWS, FLASH_ROWS_TOL = 16, 1e-2
 
 # (W, M, Z, N): the reference's sweep, then the 3xTF32 kernel's edges (M, N
-# off its 128 tile, Z off its 32 k-step, Z < 8, Z % 4 != 0 and == 0)
+# off its 128 tile, Z off its 32 k-step, Z < 8, Z % 4 != 0 and == 0), then
+# the bf16 wgmma kernel's, with rows TMA can address (M, N off its 128 x
+# 256 tile, Z off its 64-deep k-tile, one element)
 MATMUL_SWEEP = [(1, 64, 64, 64), (3, 100, 200, 60), (2, 96, 200, 64),
                 (4, 33, 77, 129), (1, 128, 1024, 128),
                 (2, 1, 1, 1), (1, 3, 5, 7), (2, 64, 4, 64), (3, 129, 4, 131),
-                (1, 200, 36, 200), (2, 130, 33, 129), (1, 257, 100, 250)]
+                (1, 200, 36, 200), (2, 130, 33, 129), (1, 257, 100, 250),
+                (2, 130, 72, 264), (1, 257, 8, 136), (3, 64, 4104, 2056),
+                (1, 1, 8, 8)]
+# the bf16 worker products: the kernel for operands TMA can address (the
+# main path's), and the CUDA-core one for the others
+BF16_MATMUL = "coded_matmul_wgmma_kernel"
+BF16_MATMUL_UNALIGNED = "coded_matmul_simt_kernel"
 ENCODE_SWEEP = [(24, 8, 100, 1000), (5, 3, 70, 33), (2, 1, 16, 16),
                 (7, 11, 129, 65)]
 SERVE_ARGS = ["--rows", "2048", "--inner", "32768", "--K", "8", "--N", "24",
@@ -432,11 +447,13 @@ def ptxas_report(text: str) -> dict:
 # selective scan (its states live in registers), and every instance of
 # the redesigned bf16 backward kernels: the scan's (its recomputed
 # states live in registers) and flash's wgmma dK/dV and dQ kernels (their
-# accumulators do)
+# accumulators do), and the bf16 worker products' wgmma kernel (its 64 x
+# 256 accumulator a warpgroup)
 NO_SPILL = ("flash_mma_kernelILi64E", "flash_mma_kernelILi128E",
             "flash_mma_kernelILi256E", "coded_matmul_tf32x3_kernelILb1E",
             "ssm_scan_kernel", "ssm_scan_bwd_kernel",
-            "flash_bwd_wg_dkdv_kernel", "flash_bwd_wg_dq_kernel")
+            "flash_bwd_wg_dkdv_kernel", "flash_bwd_wg_dq_kernel",
+            BF16_MATMUL)
 
 
 def phase_build() -> dict:
@@ -484,6 +501,34 @@ def check_no_spill(report: dict) -> None:
                 fail(f"{name} spills: {r}")
 
 
+def check_bf16_sass() -> dict:
+    """The bf16 worker products' kernel, as built, runs on the tensor
+    cores' warpgroup products (HGMMA) fed by TMA loads (UTMALDG): count
+    both in its SASS (``cuobjdump -sass`` of the library); fail if either
+    is missing.  Also returns ptxas's warnings about it (a serialized
+    wgmma would show there)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    lib = _build.library_path("coded_matmul")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    parts = re.split(r"\n\s*Function : ", sass)
+    body = [b for b in parts[1:] if BF16_MATMUL in b.split(None, 1)[0]]
+    if len(body) != 1:
+        fail(f"cuobjdump shows {len(body)} functions named {BF16_MATMUL}")
+    counts = {op: len(re.findall(r"\b" + op + r"\b", body[0]))
+              for op in ("HGMMA", "UTMALDG")}
+    if not all(counts.values()):
+        fail(f"{BF16_MATMUL}'s SASS holds {counts}: no warpgroup product or "
+             "no TMA load")
+    warnings = [ln.strip() for ln in _build.build_log("coded_matmul")
+                .splitlines() if "wgmma" in ln and "arning" in ln]
+    log(f"{BF16_MATMUL} SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} "
+        f"UTMALDG instructions; ptxas warnings on wgmma: "
+        f"{warnings or 'none'}")
+    return {"sass": counts, "ptxas_wgmma_warnings": warnings}
+
+
 def _product_bound(flops: float, nbytes: float, dt: str):
     """Bound of a worker product: float32 runs TF32_PASSES tensor-core
     passes at the TF32 rate, bf16 one pass at the bf16 rate."""
@@ -493,20 +538,32 @@ def _product_bound(flops: float, nbytes: float, dt: str):
 
 
 def phase_coded_matmul(dev, gen) -> dict:
-    from repro_torch.kernels import worker_products, worker_products_complex
+    from repro_torch.kernels import (coded_matmul, worker_products,
+                                     worker_products_complex)
     from repro_torch.kernels.coded_matmul.ref import (
         coded_matmul_3xtf32_ref, coded_matmul_complex_ref, coded_matmul_ref)
     out = {}
     emu_worst = 0.0
+    by_instance = {BF16_MATMUL: 0, BF16_MATMUL_UNALIGNED: 0}
     for W, M, Z, N in MATMUL_SWEEP:
         for dt in ("float32", "bfloat16"):
             tdt = getattr(torch, dt)
             A = torch.randn(W, M, Z, device=dev, generator=gen).to(tdt)
             B = torch.randn(W, Z, N, device=dev, generator=gen).to(tdt)
+            simt = coded_matmul.bf16_simt_launches
             got = worker_products(A, B)
             check_close(got, coded_matmul_ref(A, B), TOL[dt],
                         TOL[dt] * Z ** 0.5,
                         f"coded_matmul {dt} {(W, M, Z, N)}")
+            if dt == "bfloat16":
+                # fresh tensors start on 16 bytes: rows decide the kernel
+                want = int(Z % 8 != 0 or N % 8 != 0)
+                ran = coded_matmul.bf16_simt_launches - simt
+                if ran != want:
+                    fail(f"coded_matmul bf16 {(W, M, Z, N)}: the CUDA-core "
+                         f"instance ran {ran} times, need {want}")
+                by_instance[BF16_MATMUL_UNALIGNED if want
+                            else BF16_MATMUL] += 1
             if dt == "float32":
                 emu = rel_fro(got, coded_matmul_3xtf32_ref(A, B))
                 emu_worst = max(emu_worst, emu)
@@ -516,20 +573,28 @@ def phase_coded_matmul(dev, gen) -> dict:
                          f"emulation (limit {TF32X3_EMU_TOL})")
     log("coded_matmul: sweep shapes agree with the plain version "
         f"(float32, bfloat16); float32 within {emu_worst:.2e} of the 3xTF32 "
-        f"emulation (limit {TF32X3_EMU_TOL})")
+        f"emulation (limit {TF32X3_EMU_TOL}); bf16 shapes by kernel "
+        f"{by_instance}")
     W, M, Z, N = 96, 2048, 4096, 2048            # the serving main path
     flops = 2.0 * W * M * N * Z
     for dt in ("float32", "bfloat16"):
         tdt = getattr(torch, dt)
         A = torch.randn(W, M, Z, device=dev, generator=gen).to(tdt)
         B = torch.randn(W, Z, N, device=dev, generator=gen).to(tdt)
+        simt = coded_matmul.bf16_simt_launches
         got = worker_products(A, B)
-        err = check_close(got, coded_matmul_ref(A, B), TOL[dt],
-                          TOL[dt] * Z ** 0.5, f"coded_matmul {dt} main")
+        want = coded_matmul_ref(A, B)
+        err = check_close(got, want, TOL[dt], TOL[dt] * Z ** 0.5,
+                          f"coded_matmul {dt} main")
+        if coded_matmul.bf16_simt_launches != simt:
+            fail(f"coded_matmul {dt} main: the CUDA-core bf16 instance ran")
         item = A.element_size()
         b_ms, b_by = _product_bound(flops, item * (W * M * Z + W * Z * N
                                                    + W * M * N), dt)
         row = {"shape": [W, M, Z, N], "dtype": dt, "max_abs_err": err}
+        if dt == "bfloat16":
+            row["kernel"] = BF16_MATMUL
+            row["unaligned"] = _bf16_unaligned(A, B, want, flops)
         if dt == "float32":
             row["emulation_rel_fro"] = emu = rel_fro(
                 got, coded_matmul_3xtf32_ref(A, B))
@@ -540,7 +605,7 @@ def phase_coded_matmul(dev, gen) -> dict:
             # what the bound assumes: one TF32 pass would be 3x faster
             # but misses float32 accuracy (so do two; tests pin both)
             row["tf32_one_pass_ms"] = bound_ms(flops, 0.0, "tf32")[0]
-        del got
+        del got, want
         row.update({"ms": time_ms(lambda: worker_products(A, B)),
                     "plain_ms": time_ms(lambda: coded_matmul_ref(A, B)),
                     "library_ms": time_ms(lambda: torch.bmm(A, B)),
@@ -582,6 +647,34 @@ def phase_coded_matmul(dev, gen) -> dict:
     del ops
     torch.cuda.empty_cache()
     return out
+
+
+def _bf16_unaligned(A, B, want, flops: float) -> dict:
+    """The bf16 CUDA-core instance at the main shape: A copied to a view
+    one element (2 bytes) past 16-byte alignment, which TMA cannot
+    address; checked against the plain version like the main kernel,
+    and timed (one call after a warm-up: it is the slow one)."""
+    from repro_torch.kernels import coded_matmul, worker_products
+    W, M, Z = A.shape
+    flat = torch.empty(A.numel() + 8, dtype=A.dtype, device=A.device)
+    A1 = flat[1:1 + A.numel()].view(W, M, Z)
+    A1.copy_(A)
+    simt = coded_matmul.bf16_simt_launches
+    got = worker_products(A1, B)
+    if coded_matmul.bf16_simt_launches != simt + 1:
+        fail("coded_matmul bf16 unaligned: the CUDA-core instance did not "
+             "run")
+    err = check_close(got, want, TOL["bfloat16"], TOL["bfloat16"] * Z ** 0.5,
+                      "coded_matmul bfloat16 unaligned")
+    del got
+    ms = time_ms(lambda: worker_products(A1, B), 1)
+    del A1, flat
+    row = {"kernel": BF16_MATMUL_UNALIGNED, "offset_bytes": 2,
+           "max_abs_err": err, "ms": ms, "tflops": flops / ms / 1e9}
+    log(f"coded_matmul bfloat16 {W}x{M}x{Z}x{B.shape[2]}, A 2 bytes off "
+        f"16-byte alignment ({BF16_MATMUL_UNALIGNED}): {ms:.2f} ms "
+        f"({row['tflops']:.1f} TFLOP/s), max abs err {err:.3e} ({CARD})")
+    return row
 
 
 def phase_poly_encode(dev, gen) -> dict:
@@ -1753,7 +1846,7 @@ def phase_full_serve(code: str, requests: int, operands=None) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    coded_matmul.launches = 0
+    coded_matmul.launches = coded_matmul.bf16_simt_launches = 0
     poly_encode.launches = 0
     t0 = time.perf_counter()
     rep = _serve(SERVE_ARGS + ["--code", code, "--requests",
@@ -1761,6 +1854,9 @@ def phase_full_serve(code: str, requests: int, operands=None) -> dict:
     total = time.perf_counter() - t0
     launches = {"coded_matmul": coded_matmul.launches,
                 "poly_encode": poly_encode.launches}
+    if coded_matmul.bf16_simt_launches:
+        fail(f"{code}: the bf16 CUDA-core instance was launched "
+             f"{coded_matmul.bf16_simt_launches} times")
     peak = torch.cuda.max_memory_allocated()
     s = rep["summary"]
     if s["requests"] != requests:
@@ -1859,6 +1955,7 @@ def _zero_launches() -> None:
     from repro_torch.kernels import coded_matmul, poly_encode
     torch.cuda.synchronize()
     coded_matmul.launches = coded_matmul.bf16_launches = 0
+    coded_matmul.bf16_simt_launches = 0
     poly_encode.launches = 0
 
 
@@ -1866,6 +1963,7 @@ def _read_launches() -> dict:
     from repro_torch.kernels import coded_matmul, poly_encode
     return {"coded_matmul": coded_matmul.launches,
             "coded_matmul_bf16": coded_matmul.bf16_launches,
+            "coded_matmul_bf16_simt": coded_matmul.bf16_simt_launches,
             "poly_encode": poly_encode.launches}
 
 
@@ -2627,6 +2725,10 @@ def _cluster_full_width(rep, args, batch, operands, trace, metrics, total,
     if master["coded_matmul"] != 0 or master["poly_encode"] <= 0:
         fail(f"cluster: the master launched {master} (products belong to "
              "the workers, the encode to the master)")
+    if workers.get("coded_matmul_bf16_simt", 0) \
+            or master["coded_matmul_bf16_simt"]:
+        fail(f"cluster: the bf16 CUDA-core instance ran (workers {workers},"
+             f" master {master})")
     R = rep["code"]["R"]
     exact = {}
     for r in rep["requests"]:
@@ -4832,9 +4934,10 @@ def _bf16_serve(code_name: str, requests: int, per_batch: int, operands,
     n_batches = -(-requests // batch)
     want = n_batches * per_batch
     if launches["coded_matmul_bf16"] != want \
-            or launches["coded_matmul"] != want:
+            or launches["coded_matmul"] != want \
+            or launches["coded_matmul_bf16_simt"] != 0:
         fail(f"bf16 {code_name}: launches {launches}, need {want} of the "
-             "bf16 coded_matmul and no other")
+             f"bf16 coded_matmul ({BF16_MATMUL}) and no other")
     if launches["poly_encode"] <= 0:
         fail(f"bf16 {code_name}: poly_encode was not launched")
     if len(results) != requests or len(kept) != n_batches:
@@ -4925,11 +5028,13 @@ def _bf16_cluster(operands, f32: dict) -> dict:
                  f" losses {cl['losses']}")
         if workers.get("coded_matmul_bf16", 0) < CLUSTER_WORKERS * n_batches \
                 or workers.get("coded_matmul") != workers.get(
-                    "coded_matmul_bf16"):
+                    "coded_matmul_bf16") \
+                or workers.get("coded_matmul_bf16_simt") != 0:
             fail(f"bf16 cluster: the workers report {workers}, need "
                  f"{CLUSTER_WORKERS * n_batches} bf16 coded_matmul launches "
-                 "and no other")
-        if master["coded_matmul"] != 0 or master["poly_encode"] <= 0:
+                 f"({BF16_MATMUL}) and no other")
+        if master["coded_matmul"] != 0 or master["poly_encode"] <= 0 \
+                or master["coded_matmul_bf16_simt"] != 0:
             fail(f"bf16 cluster: the master launched {master}")
         # the replay, in this process, under the same dtype
         code = CODES["lsac_ortho"].build(8, 24)
@@ -4985,6 +5090,8 @@ def _bf16_cluster(operands, f32: dict) -> dict:
             / n_batches, "startup_s": cl["startup_s"], "total_s": total,
             "replay_s": replay_s,
             "launches": {"coded_matmul": workers["coded_matmul_bf16"],
+                         "coded_matmul_bf16_simt": workers[
+                             "coded_matmul_bf16_simt"],
                          "poly_encode": master["poly_encode"]},
             "workers": workers, "master": master, "batches": rows}
 
@@ -5038,11 +5145,13 @@ def _bf16_mesh(A, B) -> dict:
             code, A, B, wd, dtype=torch.bfloat16)
         torch.cuda.synchronize()
         mesh_launches = coded_matmul.bf16_launches - before
+        simt = coded_matmul.bf16_simt_launches
     finally:
         dist.destroy_process_group()
-    if dist_launches != 1 or mesh_launches != 1:
+    if dist_launches != 1 or mesh_launches != 1 or simt != 0:
         fail(f"bf16 mesh job: {dist_launches} and {mesh_launches} bf16 "
-             "coded_matmul launches, need 1 each")
+             f"coded_matmul launches ({simt} on the CUDA-core instance), "
+             f"need 1 each of {BF16_MATMUL}")
     P64 = torch.bmm(ea64, eb64)
     del ea64, eb64, ea, eb
     Pd = P.double()
@@ -5079,7 +5188,8 @@ def _bf16_mesh(A, B) -> dict:
             f" sum |w| {r['sum_abs_w']:.4g}), {r['vs_exact_rel']:.3e} from "
             "A@B" for k, r in rows.items()))
     return {"launches": {"coded_matmul": dist_launches + mesh_launches,
-                         "poly_encode": 0}, **rows}
+                         "coded_matmul_bf16_simt": simt, "poly_encode": 0},
+            **rows}
 
 
 def phase_bf16(operands, lsac: dict, gsac: dict, cluster: dict) -> dict:
@@ -5126,6 +5236,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ptxas = phase_build()
     check_flash_instances(ptxas)
+    sass = check_bf16_sass()
     drawer.join()
     log(f"build and operand drawing (8 pairs of 2048x32768, in a thread "
         f"meanwhile): {time.perf_counter() - t0:.1f} s")
@@ -5189,8 +5300,9 @@ def main(argv=None) -> int:
             "distributed": coded_runtime}
     mm32, enc_main = mm["float32"], enc["batch_rows24"]
     mesh_runs = mesh["launches"]
+    bf16_runs_keys = ("lsac_ortho", "gsac_k1_5", "cluster", "mesh")
     bf16_runs = {f"bf16_{k}": bf16[k]["launches"]["coded_matmul"]
-                 for k in ("lsac_ortho", "gsac_k1_5", "cluster", "mesh")}
+                 for k in bf16_runs_keys}
     coded_runs = {**{k: r["launches"]["coded_matmul"]
                      for k, r in runs.items()},
                   **{f"mesh_{k}": v["coded_matmul"]
@@ -5207,13 +5319,19 @@ def main(argv=None) -> int:
          "ms": mm32["ms"], "plain_ms": mm32["plain_ms"],
          "bound_ms": mm32["bound_ms"], "bound_by": mm32["bound_by"],
          "library_ms": mm32["library_ms"],
-         # the bf16 instance (coded_matmul_simt_kernel): its row of phase 2
-         # and its launches (the bf16_* runs of launches_by_run)
-         "bfloat16": {"kernel": "coded_matmul_simt_kernel",
+         # the bf16 instance (wgmma fed by TMA): its row of phase 2 and its
+         # launches (the bf16_* runs of launches_by_run); the CUDA-core
+         # instance for operands TMA cannot address, which no main-path
+         # run launched, timed at the same shape off alignment
+         "bfloat16": {"kernel": BF16_MATMUL, "status": "redesigned",
                       "launches": sum(bf16_runs.values()),
+                      "sass": sass["sass"],
                       **{k: mm16[k] for k in (
                           "shape", "max_abs_err", "ms", "plain_ms",
-                          "bound_ms", "bound_by", "library_ms")}}},
+                          "bound_ms", "bound_by", "library_ms", "tflops")},
+                      "unaligned": {**mm16["unaligned"], "launches": sum(
+                          bf16[k]["launches"]["coded_matmul_bf16_simt"]
+                          for k in bf16_runs_keys)}}},
         {"name": "poly_encode", "status": "ported", "route": "cuda",
          "source": "src/repro_torch/csrc/poly_encode.cu",
          "replaces": "src/repro/kernels/poly_encode/kernel.py:41",
@@ -5313,7 +5431,8 @@ def main(argv=None) -> int:
              "open_loop": open_loop, "autotune": autotune,
              "engine": engine, "cluster": cluster,
              "coded_runtime": coded_runtime, "mesh": mesh,
-             "train_kernels": train_k, "bf16": bf16, "kernels": kernels},
+             "train_kernels": train_k, "bf16": bf16, "bf16_sass": sass,
+             "kernels": kernels},
             indent=2))
     print(card)
     print(json.dumps({"kernels": kernels, "not_ported": []}))

@@ -272,7 +272,7 @@ class TorchShardComputer(ShardComputer):
             raise ValueError(f"unsupported compute device {device!r}")
         self.device = dev
         self.dtype = getattr(torch, compute_dtype_name(dtype))
-        self._base = self._bf16_base = 0
+        self._base = self._bf16_base = self._simt_base = 0
 
     def _put(self, x: np.ndarray):
         host = np.ascontiguousarray(x, dtype=np.float32)
@@ -300,14 +300,19 @@ class TorchShardComputer(ShardComputer):
         self.shard_products(one, one, 0)
         self._base = self._ops.coded_matmul.launches
         self._bf16_base = self._ops.coded_matmul.bf16_launches
+        self._simt_base = self._ops.coded_matmul.bf16_simt_launches
 
     def counters(self) -> dict:
         """``coded_matmul`` launches, and in bf16 also ``coded_matmul_bf16``
-        (the bf16 instance's, the same launches)."""
+        (the bf16 instances', the same launches) and
+        ``coded_matmul_bf16_simt`` (those of them that took the CUDA-core
+        instance, for operands TMA cannot address)."""
         mm = self._ops.coded_matmul
         out = {"coded_matmul": mm.launches - self._base}
         if self.dtype == self._torch.bfloat16:
             out["coded_matmul_bf16"] = mm.bf16_launches - self._bf16_base
+            out["coded_matmul_bf16_simt"] = (mm.bf16_simt_launches
+                                             - self._simt_base)
         return out
 
 

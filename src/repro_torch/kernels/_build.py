@@ -39,6 +39,8 @@ SIGNATURES = {
                               _I, _P], _I),
         "coded_matmul_bf16": ([_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I,
                                _I, _P], _I),
+        "coded_matmul_bf16_simt": ([_P, _P, _P, _I, _I, _I, _I, _LL, _LL,
+                                    _LL, _I, _I, _P], _I),
     },
     "poly_encode": {
         "poly_encode_f32": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL,

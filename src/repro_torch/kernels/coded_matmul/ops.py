@@ -1,20 +1,23 @@
-"""Worker products of the coded matmul: the CUDA kernel and its wrappers.
+"""Worker products of the coded matmul: the CUDA kernels and their wrappers.
 
 Counterpart of the reference's ``kernels/coded_matmul/ops.py``, whose TPU
 kernel is ``coded_matmul_pallas`` (``src/repro/kernels/coded_matmul/
-kernel.py``).  The source (``csrc/coded_matmul.cu``) holds two batched
-GEMM kernels with masked M/N/Z edges: float32 runs three TF32 tensor-core
-products per output (each operand split into a TF32 high and low part,
-``A_hi·B_hi + A_hi·B_lo + A_lo·B_hi``), which keeps float32 accuracy;
-bf16 runs the first CUDA-core design.  Its source note gives the bound on
-the card and the designs.
+kernel.py``).  The source (``csrc/coded_matmul.cu``) holds three batched
+GEMM kernels: float32 runs three TF32 tensor-core products per output
+(each operand split into a TF32 high and low part, ``A_hi·B_hi +
+A_hi·B_lo + A_lo·B_hi``), which keeps float32 accuracy; bf16 runs on
+Hopper's warpgroup products (``wgmma``) fed by TMA loads, with a float32
+accumulator and one rounding to bf16, when TMA can address the operands
+(:func:`tma_aligned`), and otherwise on a CUDA-core kernel.  Its source
+note gives the bound on the card and the designs.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
-the kernel or raises — there is no fallback.  :func:`coded_matmul` counts
-its launches in ``coded_matmul.launches``, and those of the bf16 instance
-also in ``coded_matmul.bf16_launches``.  Complex evaluation points run
-as four launches into two outputs (``re = ArBr − AiBi``, ``im = ArBi +
-AiBr``), accumulating in place with no temporaries.
+a kernel or raises — there is no fallback.  :func:`coded_matmul` counts
+its launches in ``coded_matmul.launches``, those in bf16 also in
+``coded_matmul.bf16_launches``, and those of the CUDA-core bf16 instance
+also in ``coded_matmul.bf16_simt_launches``.  Complex evaluation points
+run as four launches into two outputs (``re = ArBr − AiBi``, ``im = ArBi
++ AiBr``), accumulating in place with no temporaries.
 """
 from __future__ import annotations
 
@@ -23,10 +26,15 @@ import torch
 from .._build import check, load, refuse_autograd
 from .ref import coded_matmul_ref
 
-__all__ = ["coded_matmul", "worker_products", "worker_products_complex"]
+__all__ = ["coded_matmul", "worker_products", "worker_products_complex",
+           "tma_aligned"]
 
 _KERNEL_DTYPES = {torch.float32: "coded_matmul_f32",
                   torch.bfloat16: "coded_matmul_bf16"}
+# rows of C one block owns, in every instance (BM, TC_BM and WG_BM in the
+# source): the grid's y extent is ceil(M / TILE_ROWS)
+TILE_ROWS = 128
+GRID_MAX = 65535                     # the grid's y and z extents
 
 
 def _check(E_A: torch.Tensor, E_B: torch.Tensor, out) -> tuple:
@@ -57,6 +65,25 @@ def _rows_contiguous(t: torch.Tensor) -> bool:
     """Rows of every worker's matrix contiguous (any worker stride)."""
     return t.shape[2] <= 1 or t.stride(2) == 1 and (
         t.shape[1] <= 1 or t.stride(1) == t.shape[2])
+
+
+def tma_aligned(E_A: torch.Tensor, E_B: torch.Tensor) -> bool:
+    """Whether TMA can address bf16 operands ``(W, M, Z)`` and ``(W, Z,
+    N)`` with contiguous rows, so that they take the ``wgmma`` instance:
+    every global stride and base 16-byte aligned — Z and N multiples of 8,
+    each worker stride a positive multiple of 8 elements (any, when W ==
+    1), both first elements on 16 bytes.  Other operands take the
+    CUDA-core instance.  The C entry of the ``wgmma`` instance refuses
+    what this refuses."""
+    W, _, Z = E_A.shape
+    N = E_B.shape[2]
+
+    def ok(t: torch.Tensor) -> bool:
+        stride = t.stride(0)
+        return t.data_ptr() % 16 == 0 and (
+            W == 1 or stride > 0 and stride % 8 == 0)
+
+    return Z > 0 and Z % 8 == 0 and N % 8 == 0 and ok(E_A) and ok(E_B)
 
 
 def coded_matmul(E_A: torch.Tensor, E_B: torch.Tensor,
@@ -95,12 +122,16 @@ def coded_matmul(E_A: torch.Tensor, E_B: torch.Tensor,
     elif not _rows_contiguous(out):
         raise ValueError(f"coded_matmul out needs contiguous rows (strides "
                          f"{out.stride()})")
-    if W > 65535 or -(-M // 128) > 65535:
+    if W > GRID_MAX or -(-M // TILE_ROWS) > GRID_MAX:
         raise ValueError(f"grid too large for W={W}, M={M}")
     if W == 0 or M == 0 or N == 0:
         return out
+    entry = _KERNEL_DTYPES[E_A.dtype]
+    simt = E_A.dtype == torch.bfloat16 and not tma_aligned(E_A, E_B)
+    if simt:
+        entry = "coded_matmul_bf16_simt"
     lib = load("coded_matmul")
-    fn = getattr(lib, _KERNEL_DTYPES[E_A.dtype])
+    fn = getattr(lib, entry)
     with torch.cuda.device(E_A.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(E_A.data_ptr(), E_B.data_ptr(), out.data_ptr(), W, M, N, Z,
@@ -110,11 +141,14 @@ def coded_matmul(E_A: torch.Tensor, E_B: torch.Tensor,
     coded_matmul.launches += 1
     if E_A.dtype == torch.bfloat16:
         coded_matmul.bf16_launches += 1
+        if simt:
+            coded_matmul.bf16_simt_launches += 1
     return out
 
 
 coded_matmul.launches = 0
 coded_matmul.bf16_launches = 0
+coded_matmul.bf16_simt_launches = 0
 
 
 def worker_products(E_A: torch.Tensor, E_B: torch.Tensor) -> torch.Tensor:

@@ -243,7 +243,8 @@ def test_bf16_shard_computer_matches_reference_device_computer(family,
         want = want.astype(np.complex128 if cplx else np.float64)
         np.testing.assert_allclose(got, want, rtol=5e-2, atol=5e-2 * Z ** 0.5,
                                    err_msg=f"{family} shard {shard}")
-    assert port.counters() == {"coded_matmul": 0, "coded_matmul_bf16": 0}
+    assert port.counters() == {"coded_matmul": 0, "coded_matmul_bf16": 0,
+                               "coded_matmul_bf16_simt": 0}
     with pytest.raises(ValueError, match="'float16'"):
         TorchShardComputer(device="cpu", dtype="float16")
 

@@ -249,7 +249,8 @@ def test_bf16_device_compute_record_replay_bit_identity(monkeypatch):
         live = _serve(MasterScheduler(code, be, cfg), reqs)
         rec = be.recording
     counters = be.pool.worker_counters
-    assert counters and all(c == {"coded_matmul": 0, "coded_matmul_bf16": 0}
+    assert counters and all(c == {"coded_matmul": 0, "coded_matmul_bf16": 0,
+                                  "coded_matmul_bf16_simt": 0}
                             for c in counters.values())
     assert live == _serve(MasterScheduler(code, ReplayBackend(
         rec, compute="device", device="cpu"), cfg), reqs)

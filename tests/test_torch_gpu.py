@@ -24,6 +24,7 @@ from repro_torch.core import split_contraction
 from repro_torch.kernels import (coded_matmul, flash_attention, poly_encode,
                                  ssm_scan, worker_products,
                                  worker_products_complex)
+from repro_torch.kernels.coded_matmul.ops import tma_aligned
 from repro_torch.kernels.coded_matmul.ref import (coded_matmul_3xtf32_ref,
                                                   coded_matmul_complex_ref,
                                                   coded_matmul_ref)
@@ -51,6 +52,10 @@ FLASH_SHAPES = [(1, 2, 2, 64, 64, 16), (2, 4, 2, 64, 64, 32),
 MATMUL_EDGES = [(2, 1, 1, 1), (1, 3, 5, 7), (2, 64, 4, 64), (3, 129, 4, 131),
                 (1, 200, 36, 200), (2, 130, 33, 129), (1, 257, 100, 250),
                 (1, 128, 4096, 128)]
+# bf16 wgmma tile edges (W, M, Z, N), rows TMA can address: M and N off the
+# 128 x 256 tile, Z off the 64-deep k-tile, one element
+BF16_TMA_EDGES = [(2, 130, 72, 264), (1, 257, 8, 136), (3, 64, 4104, 2056),
+                  (1, 1, 8, 8)]
 # bf16 flash tile edges (Lq, Lkv): off the 128 / 64 query tiles and the 64
 # (32 at d = 256) key tiles
 FLASH_EDGES = [(1, 1), (7, 130), (65, 64), (129, 129), (200, 333), (300, 97)]
@@ -150,6 +155,76 @@ def test_coded_matmul_f32_views_and_accumulate(cuda, Z, N, offset):
     out = torch.ones(W, M, N, device=cuda)
     coded_matmul(A, B, out, accumulate=True, sign=-1)
     _assert_close(out, 1 - coded_matmul_ref(A, B), 2e-4, 2e-4 * Z ** 0.5)
+
+
+def _bf16_counts():
+    """(bf16 launches, those on the CUDA-core instance)."""
+    return coded_matmul.bf16_launches, coded_matmul.bf16_simt_launches
+
+
+@pytest.mark.parametrize("W,M,Z,N", BF16_TMA_EDGES)
+def test_coded_matmul_bf16_wgmma_tile_edges(cuda, W, M, Z, N):
+    """The wgmma kernel off its tiles, with rows TMA can address: it runs
+    (not the CUDA-core instance) and agrees with the plain version."""
+    A = _randn((W, M, Z), "bfloat16", cuda, 40)
+    B = _randn((W, Z, N), "bfloat16", cuda, 41)
+    before = _bf16_counts()
+    got = worker_products(A, B)
+    torch.cuda.synchronize()
+    assert _bf16_counts() == (before[0] + 1, before[1])
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (W, M, N)
+    _assert_close(got, coded_matmul_ref(A, B), TOL["bfloat16"],
+                  TOL["bfloat16"] * Z ** 0.5)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_coded_matmul_bf16_views_and_accumulate(cuda, offset):
+    """Worker-strided views, ``out -= A@B`` into a bf16 ``out``: offset 0
+    takes the wgmma instance, offset 1 (2 bytes off 16-byte alignment)
+    the CUDA-core one, as their counters show."""
+    W, M, Z, N = 5, 40, 72, 136
+    flat = _randn((2 * W * M * Z + offset,), "bfloat16", cuda, 42)
+    A = flat[offset:].view(W, 2, M, Z)[:, 1]      # worker stride 2*M*Z
+    B = _randn((W, Z, N), "bfloat16", cuda, 43)
+    assert tma_aligned(A, B) == (offset == 0)
+    out = torch.ones(W, M, N, device=cuda, dtype=torch.bfloat16)
+    before = _bf16_counts()
+    coded_matmul(A, B, out, accumulate=True, sign=-1)
+    torch.cuda.synchronize()
+    assert _bf16_counts() == (before[0] + 1, before[1] + offset)
+    _assert_close(out, 1 - coded_matmul_ref(A.float(), B.float()),
+                  TOL["bfloat16"], TOL["bfloat16"] * Z ** 0.5)
+
+
+def test_worker_products_complex_bf16_on_wgmma(cuda):
+    """The four-launch complex wrapper in bf16, accumulating into bf16
+    outputs, all four on the wgmma instance."""
+    ops = [_randn(s, "bfloat16", cuda, 44 + i) for i, s in
+           enumerate([(3, 130, 72)] * 2 + [(3, 72, 264)] * 2)]
+    before = _bf16_counts()
+    re, im = worker_products_complex(*ops)
+    torch.cuda.synchronize()
+    assert _bf16_counts() == (before[0] + 4, before[1])
+    want_re, want_im = coded_matmul_complex_ref(*(t.float() for t in ops))
+    atol = 2 * TOL["bfloat16"] * 72 ** 0.5
+    _assert_close(re, want_re, TOL["bfloat16"], atol)
+    _assert_close(im, want_im, TOL["bfloat16"], atol)
+
+
+def test_coded_matmul_bf16_wgmma_entry_refuses_what_tma_cannot_read(cuda):
+    """The wgmma instance's C entry refuses, before launching, operands
+    that ``tma_aligned`` sends to the CUDA-core instance."""
+    from repro_torch.kernels._build import UNSUPPORTED, load
+    lib = load("coded_matmul")
+    stream = torch.cuda.current_stream().cuda_stream
+    flat = torch.zeros(4096, device=cuda, dtype=torch.bfloat16)
+    out = torch.zeros(2, 8, 24, device=cuda, dtype=torch.bfloat16)
+    for off_a, Z, N, s_aw in ((1, 16, 24, 128), (0, 20, 24, 160),
+                              (0, 16, 12, 128), (0, 16, 24, 132)):
+        rc = lib.coded_matmul_bf16(flat.data_ptr() + 2 * off_a,
+                                   flat.data_ptr(), out.data_ptr(), 2, 8, N,
+                                   Z, s_aw, Z * N, 8 * N, 1, 0, stream)
+        assert rc == UNSUPPORTED, (off_a, Z, N, s_aw)
 
 
 @pytest.mark.parametrize("W,K,R,C", ENCODE_SHAPES)
@@ -718,7 +793,8 @@ def test_bf16_shard_computer_on_the_card_matches_cpu(cuda):
         np.testing.assert_allclose(got, host.shard_products(E_A, E_B, shard),
                                    rtol=TOL["bfloat16"],
                                    atol=TOL["bfloat16"] * 96 ** 0.5)
-    assert card.counters() == {"coded_matmul": 3, "coded_matmul_bf16": 3}
+    assert card.counters() == {"coded_matmul": 3, "coded_matmul_bf16": 3,
+                               "coded_matmul_bf16_simt": 0}
 
 
 def test_cluster_device_record_replay_bit_identity_on_the_card(cuda):

@@ -33,6 +33,7 @@ from repro_torch.core import MatDotCode, split_contraction, x_equal
 from repro_torch.kernels import (_build, coded_matmul, flash_attention,
                                  poly_encode, ssm_scan, worker_products,
                                  worker_products_complex)
+from repro_torch.kernels.coded_matmul.ops import tma_aligned
 from repro_torch.kernels.coded_matmul.ref import \
     coded_matmul_ref as plain_coded_matmul
 from repro_torch.kernels.coded_matmul.ref import (coded_matmul_3xtf32_ref,
@@ -135,6 +136,66 @@ def test_coded_matmul_accumulate_and_sign_on_cpu():
     torch.testing.assert_close(out, 1 - P)
     coded_matmul(ta, tb, out)                     # plain store overwrites
     torch.testing.assert_close(out, P)
+
+
+# (W, M, Z, N): edges of the bf16 wgmma kernel with rows TMA can address
+# (M, N off its 128 x 256 tile, Z off its 64-deep k-tile, one element)
+BF16_TMA_EDGES = [(2, 130, 72, 264), (1, 257, 8, 136), (1, 1, 8, 8)]
+
+
+@pytest.mark.parametrize("W,M,Z,N", BF16_TMA_EDGES)
+def test_coded_matmul_bf16_plain_matches_pallas_at_wgmma_edges(W, M, Z, N):
+    """At the new kernel's tile edges the plain version, which the card
+    holds the kernel to, agrees with the reference's Pallas kernel."""
+    (ja, ta), (jb, tb) = _matmul_inputs(W, M, Z, N, "bfloat16", seed=5)
+    want = coded_matmul_pallas(ja, jb, bm=32, bn=32, bz=64, interpret=True)
+    got = worker_products(ta, tb)
+    assert got.dtype == torch.bfloat16 and got.shape == (W, M, N)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=5e-2,
+                               atol=5e-2 * Z ** 0.5)
+
+
+def _bf16_operands(W, M, Z, N, a_offset=0, a_pad=0, b_offset=0,
+                   b_expand=False):
+    """bf16 CPU operands: A a view ``a_offset`` elements into a flat buffer
+    with ``a_pad`` elements between workers, B ``b_offset`` elements in,
+    or one matrix expanded over the workers (worker stride 0)."""
+    rows = M * Z + a_pad
+    A = torch.zeros(W * rows + a_offset, dtype=torch.bfloat16)[a_offset:]
+    A = A.view(W, rows)[:, :M * Z].view(W, M, Z)
+    if b_expand:
+        B = torch.zeros(1, Z, N, dtype=torch.bfloat16).expand(W, Z, N)
+    else:
+        B = torch.zeros(W * Z * N + b_offset,
+                        dtype=torch.bfloat16)[b_offset:].view(W, Z, N)
+    return A, B
+
+
+@pytest.mark.parametrize("case,kwargs,tma", [
+    ("aligned", dict(W=3, M=5, Z=16, N=24), True),
+    ("serving_shape", dict(W=96, M=1, Z=4096, N=8), True),
+    ("z_off_8", dict(W=3, M=5, Z=20, N=24), False),
+    ("n_off_8", dict(W=3, M=5, Z=16, N=12), False),
+    ("empty_contraction", dict(W=3, M=5, Z=0, N=24), False),
+    ("a_2_bytes_in", dict(W=3, M=5, Z=16, N=24, a_offset=1), False),
+    ("a_8_bytes_in", dict(W=3, M=5, Z=16, N=24, a_offset=4), False),
+    ("a_16_bytes_in", dict(W=3, M=5, Z=16, N=24, a_offset=8), True),
+    ("b_2_bytes_in", dict(W=3, M=5, Z=16, N=24, b_offset=1), False),
+    ("a_stride_pad_8", dict(W=3, M=5, Z=16, N=24, a_pad=8), True),
+    ("a_stride_pad_4", dict(W=3, M=5, Z=16, N=24, a_pad=4), False),
+    ("one_worker_odd_stride", dict(W=1, M=5, Z=16, N=24, a_pad=4), True),
+    ("b_expanded", dict(W=3, M=5, Z=16, N=24, b_expand=True), False),
+])
+def test_tma_aligned_picks_the_bf16_instance(case, kwargs, tma):
+    """Which bf16 operands take the TMA-fed wgmma instance: every global
+    stride and base 16-byte aligned (Z, N and worker strides multiples of
+    8 elements, the first elements on 16 bytes; a single worker's stride
+    never read); the rest take the CUDA-core instance.  On the CPU the
+    wrapper runs the plain version for either."""
+    A, B = _bf16_operands(**kwargs)
+    assert tma_aligned(A, B) is tma, case
+    assert worker_products(A, B).shape == (A.shape[0], A.shape[1],
+                                           B.shape[2])
 
 
 def test_tf32_round_is_round_to_nearest_ties_away():
