@@ -11,8 +11,11 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
    source, all at once) and print the compiler's registers and spills for
    every kernel instance; the main path's tensor-core instances must not
    spill (checked at the end, with the serve's accuracy).  The bf16
-   worker products' SASS (``cuobjdump -sass``) must hold warpgroup
-   products (HGMMA) and TMA loads (UTMALDG).
+   worker products' SASS (``cuobjdump -sass``) and every instance of bf16
+   flash's forward (``flash_fwd_wg_kernel``) must hold warpgroup products
+   (HGMMA) and TMA loads (UTMALDG), ptxas must not report a serialized
+   ``wgmma`` in the forward, and the library must hold no function of the
+   ``mma.sync`` forward it replaced (``flash_mma_kernel``: 0 launches).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at the non-divisible sweep shapes of the tests,
    with the reference's tolerance (the float32 worker products also to
@@ -57,7 +60,7 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
     (4 x 16 x 8192 x 128) and at musicgen-large's (4 x 32 x 2048 x 64),
     full causal, bf16, against its plain version per batch row and per
     block of 16 query rows, timed beside SDPA and its bound, with the
-    ``flash_mma_kernel<128>`` and ``<64>`` instances' registers and
+    ``flash_fwd_wg_kernel<128>`` and ``<64>`` instances' registers and
     spills; then qwen2-moe-a2.7b at full width and depth (bf16, seeded
     weights): a 1 x 2048 prefill with the kernels against the plain
     versions (5e-2, with the share of (token, layer) top-4 expert sets
@@ -144,7 +147,9 @@ Phases (any failed check exits non-zero; nothing is caught and skipped):
     way; (b) repro-100m at full width (12 x 768 / 2048, vocab 32,000,
     bf16) at the training CLI's batch 8 x 512: 30 steps uncoded and 20
     with the coded MLP (K=8, N=16, one dead worker), finite losses and a
-    held-out loss that falls, the coded run's loss within 3x the
+    held-out loss that falls (the coded run's on a float32 copy of its
+    weights, where the coded MLP decodes exactly), the coded run's loss
+    within 3x the
     reference's measured gap of the uncoded run's (also at the reference's
     cut, batch 2 x 128), step ms, tokens/s, peak memory and a profiled
     step; one coded contraction at full width (4096 x 2048 x 768, float32)
@@ -291,6 +296,9 @@ MATMUL_SWEEP = [(1, 64, 64, 64), (3, 100, 200, 60), (2, 96, 200, 64),
 # main path's), and the CUDA-core one for the others
 BF16_MATMUL = "coded_matmul_wgmma_kernel"
 BF16_MATMUL_UNALIGNED = "coded_matmul_simt_kernel"
+# bf16 flash's forward (wgmma fed by TMA), and the mma.sync design it
+# replaced, which the library must no longer hold
+FLASH_FWD, FLASH_FWD_OLD = "flash_fwd_wg_kernel", "flash_mma_kernel"
 ENCODE_SWEEP = [(24, 8, 100, 1000), (5, 3, 70, 33), (2, 1, 16, 16),
                 (7, 11, 129, 65)]
 SERVE_ARGS = ["--rows", "2048", "--inner", "32768", "--K", "8", "--N", "24",
@@ -440,17 +448,17 @@ def ptxas_report(text: str) -> dict:
 
 
 # instances on the main paths, which must not spill, by a substring of
-# their mangled names: flash_mma_kernel<64> (hymba, musicgen, minicpm),
-# flash_mma_kernel<128> (qwen2-moe, qwen2.5, llava, qwen1.5; 171 registers,
-# no spill on the H100), flash_mma_kernel<256> (gemma; 239 registers, no
-# spill), coded_matmul_tf32x3_kernel<true>, every instance of the
+# their mangled names: every instance of bf16 flash's forward,
+# flash_fwd_wg_kernel (<64>: hymba, musicgen, minicpm; <128>: qwen2-moe,
+# qwen2.5, llava, qwen1.5, kimi-k2 padded; <256>: gemma; its accumulators
+# live in registers), coded_matmul_tf32x3_kernel<true>, every instance of
+# the
 # selective scan (its states live in registers), and every instance of
 # the redesigned bf16 backward kernels: the scan's (its recomputed
 # states live in registers) and flash's wgmma dK/dV and dQ kernels (their
 # accumulators do), and the bf16 worker products' wgmma kernel (its 64 x
 # 256 accumulator a warpgroup)
-NO_SPILL = ("flash_mma_kernelILi64E", "flash_mma_kernelILi128E",
-            "flash_mma_kernelILi256E", "coded_matmul_tf32x3_kernelILb1E",
+NO_SPILL = (FLASH_FWD, "coded_matmul_tf32x3_kernelILb1E",
             "ssm_scan_kernel", "ssm_scan_bwd_kernel",
             "flash_bwd_wg_dkdv_kernel", "flash_bwd_wg_dq_kernel",
             BF16_MATMUL)
@@ -477,7 +485,7 @@ def check_flash_instances(report: dict) -> list:
     the library reports: the wrapper pads against what was built."""
     from repro_torch.kernels.flash_attention.ops import head_dims
     dims = list(head_dims())
-    for kernel in ("flash_mma_kernel", "flash_simt_kernel"):
+    for kernel in (FLASH_FWD, "flash_simt_kernel"):
         built = sorted(int(m[1]) for m in (
             re.search(kernel + r"ILi(\d+)E", n) for n in report) if m)
         if built != dims:
@@ -501,32 +509,84 @@ def check_no_spill(report: dict) -> None:
                 fail(f"{name} spills: {r}")
 
 
+def _sass_functions(name: str) -> dict:
+    """{function name: SASS} of the library built from ``csrc/<name>.cu``
+    (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    lib = _build.library_path(name)
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {b.split(None, 1)[0]: b
+            for b in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+def _tensor_core_ops(body: str) -> dict:
+    return {op: len(re.findall(r"\b" + op + r"\b", body))
+            for op in ("HGMMA", "UTMALDG")}
+
+
+def _wgmma_warnings(name: str) -> list:
+    """ptxas's warnings on ``wgmma``, and its notes that it serialized a
+    kernel's ``wgmma``s (reported as "info", C7515-C7520)."""
+    from repro_torch.kernels import _build
+    return [ln.strip() for ln in _build.build_log(name).splitlines()
+            if "wgmma" in ln and ("arning" in ln or "serialized" in ln)]
+
+
 def check_bf16_sass() -> dict:
     """The bf16 worker products' kernel, as built, runs on the tensor
     cores' warpgroup products (HGMMA) fed by TMA loads (UTMALDG): count
     both in its SASS (``cuobjdump -sass`` of the library); fail if either
     is missing.  Also returns ptxas's warnings about it (a serialized
     wgmma would show there)."""
-    from repro_torch.kernels import _build
-    tool = Path(_build._nvcc()).parent / "cuobjdump"
-    lib = _build.library_path("coded_matmul")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    parts = re.split(r"\n\s*Function : ", sass)
-    body = [b for b in parts[1:] if BF16_MATMUL in b.split(None, 1)[0]]
+    body = [b for n, b in _sass_functions("coded_matmul").items()
+            if BF16_MATMUL in n]
     if len(body) != 1:
         fail(f"cuobjdump shows {len(body)} functions named {BF16_MATMUL}")
-    counts = {op: len(re.findall(r"\b" + op + r"\b", body[0]))
-              for op in ("HGMMA", "UTMALDG")}
+    counts = _tensor_core_ops(body[0])
     if not all(counts.values()):
         fail(f"{BF16_MATMUL}'s SASS holds {counts}: no warpgroup product or "
              "no TMA load")
-    warnings = [ln.strip() for ln in _build.build_log("coded_matmul")
-                .splitlines() if "wgmma" in ln and "arning" in ln]
+    warnings = _wgmma_warnings("coded_matmul")
     log(f"{BF16_MATMUL} SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} "
         f"UTMALDG instructions; ptxas warnings on wgmma: "
         f"{warnings or 'none'}")
     return {"sass": counts, "ptxas_wgmma_warnings": warnings}
+
+
+def check_flash_sass(dims: list) -> dict:
+    """Every instance of bf16 flash's forward, as built, issues warpgroup
+    products (HGMMA) fed by TMA loads (UTMALDG), and ptxas serialized no
+    ``wgmma`` of the library; it holds no function of the ``mma.sync``
+    forward it replaced, so that design launches 0 times on every path.
+    Fails otherwise; returns the counts by head dim."""
+    funcs = _sass_functions("flash_attention")
+    old = [n for n in funcs if FLASH_FWD_OLD in n]
+    if old:
+        fail(f"the flash library still holds {old}")
+    counts = {}
+    for n, body in funcs.items():
+        m = re.search(FLASH_FWD + r"ILi(\d+)E", n)
+        if m:
+            counts[int(m[1])] = _tensor_core_ops(body)
+    if sorted(counts) != dims or not all(
+            all(c.values()) for c in counts.values()):
+        fail(f"{FLASH_FWD}'s SASS by head dim: {counts} (need HGMMA and "
+             f"UTMALDG in each of {dims})")
+    # a serialized wgmma runs each product to its end before the next
+    # issues (30 % of the forward's time at qwen2-moe's shape)
+    warnings = _wgmma_warnings("flash_attention")
+    serialized = [w for w in warnings if "serialized" in w]
+    if serialized:
+        fail(f"ptxas serialized wgmmas in the flash library: {serialized}")
+    log(f"{FLASH_FWD} SASS by head dim: "
+        + ", ".join(f"<{d}> {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG"
+                    for d, c in sorted(counts.items()))
+        + f"; {FLASH_FWD_OLD} (the mma.sync forward): not in the library, "
+        f"0 launches; ptxas warnings on wgmma: {warnings or 'none'}")
+    return {"sass": counts, "ptxas_wgmma_warnings": warnings,
+            f"{FLASH_FWD_OLD}_launches": 0}
 
 
 def _product_bound(flops: float, nbytes: float, dt: str):
@@ -1554,8 +1614,8 @@ def _flash_served(dev, gen, ptxas: dict, arch: str, B: int, L: int) -> dict:
     causal, bf16): checked against the plain version per batch row
     (elementwise and per block of FLASH_ROWS query rows), timed beside SDPA
     and the bound (of the true head dim's work); the registers and spills
-    of the ``flash_mma_kernel`` instance it runs in (the next built head
-    dim up for a dim without one)."""
+    of the ``flash_fwd_wg_kernel`` instance it runs in (the next built
+    head dim up for a dim without one)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention.ops import (head_dims,
@@ -1581,9 +1641,9 @@ def _flash_served(dev, gen, ptxas: dict, arch: str, B: int, L: int) -> dict:
     flops = 4.0 * d * pairs
     nbytes = 2 * (2 * B * H * L * d + 2 * B * Hkv * L * d)
     b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
-    inst = {n: r for n, r in ptxas.items() if f"flash_mma_kernelILi{D}E" in n}
+    inst = {n: r for n, r in ptxas.items() if f"{FLASH_FWD}ILi{D}E" in n}
     if not inst:
-        fail(f"ptxas report shows no flash_mma_kernel<{D}>")
+        fail(f"ptxas report shows no {FLASH_FWD}<{D}>")
     row = {"arch": cfg.name, "shape": [B, H, Hkv, L, d], "dtype": "bfloat16",
            "window": 0, "max_abs_err": err, "rel_fro": fro,
            "rows_rel_fro": rows, "unmasked_pairs": pairs, "flops": flops,
@@ -1604,7 +1664,7 @@ def _flash_served(dev, gen, ptxas: dict, arch: str, B: int, L: int) -> dict:
         f"{cfg.n_layers} layers {row['flops_all_layers'] / 1e12:.1f} TFLOP); "
         f"vs plain: max abs err {err:.3e}, rel. Frobenius {fro:.3e}, worst "
         f"block of {FLASH_ROWS} rows {rows:.3e}; rel. Frobenius vs SDPA "
-        f"{row['library_rel_fro']:.2e}; flash_mma_kernel<{D}>"
+        f"{row['library_rel_fro']:.2e}; {FLASH_FWD}<{D}>"
         + (f" (head dim {d} zero-padded to {D}) " if D != d else " ")
         + "; ".join(f"{r.get('registers')} registers, {r.get('spill_stores')}"
                     f" B spill stores, {r.get('spill_loads')} B spill loads"
@@ -2956,8 +3016,17 @@ RESUME_TOL = 1e-6             # the reference test's rtol
 # step 1, 9e-5 at step 30), so the step losses move by less than one batch's
 # noise; "the loss falls" is held on one held-out batch (the pipeline's step
 # HELDOUT_STEP, never trained on): its loss after the run must be below its
-# loss at the initial weights.  The means of the first and last FALL_WINDOW
-# step losses are reported.
+# loss at the initial weights.  The coded run's is evaluated on a float32
+# copy of its weights, where the coded MLP decodes h @ w_down to 1e-3: in
+# bf16 the decode amplifies rounding (relative error ~8.8, a reference
+# behaviour; ROADMAP Queue C), so that loss moves with the attention
+# kernel's last bits by more than 20 warm-up steps move it (on an NVIDIA
+# H100 80GB HBM3, 700.00 W, with the mma.sync flash forward that the
+# wgmma one replaced the bf16 held-out loss rose on two of three held-out
+# batches, +0.040 and +0.019, and fell on this one; the float32 one fell
+# with either forward).  The
+# bf16 value is reported beside it, unchecked.  The means of the first and
+# last FALL_WINDOW step losses are reported.
 HELDOUT_STEP, FALL_WINDOW = 10 ** 6, 5
 # The coded run's loss gap to the uncoded run, relative to the uncoded loss,
 # in the reference's own train(): at most 7.78e-3 per step over seeds 0-2 at
@@ -3169,8 +3238,11 @@ def _timed_steps(cfg, params, opt, coded_w, first: int, n: int = 5) -> dict:
             "breakdown": dict(rows, launch_calls=launches)}
 
 
-def _heldout(cfg, params, coded_w=None) -> float:
-    """``lm_loss`` of the held-out batch (no gradient)."""
+def _heldout(cfg, params, coded_w=None, float32: bool = False) -> float:
+    """``lm_loss`` of the held-out batch (no gradient); with ``float32`` on
+    a float32 copy of ``params``."""
+    import copy
+
     from repro_torch.data import SyntheticTokens
     from repro_torch.models import lm_loss
     batch = {"tokens": torch.as_tensor(SyntheticTokens(
@@ -3178,6 +3250,9 @@ def _heldout(cfg, params, coded_w=None) -> float:
             "tokens"], dtype=torch.long, device="cuda")}
     if coded_w is not None:
         batch["coded_weights"] = coded_w
+    if float32:
+        params, cfg = copy.deepcopy(params).float(), cfg.replace(
+            dtype="float32")
     with torch.no_grad():
         return float(lm_loss(params, batch, cfg))
 
@@ -3234,7 +3309,8 @@ def _phase_train(failing: subprocess.Popen, ckpt: Path) -> dict:
                          dtype=torch.float32, device="cuda")
     ccfg = cfg.replace(coded=True)
     init, _ = build_state(cfg, 0, device="cuda")
-    h0 = (_heldout(cfg, init), _heldout(ccfg, init, cw))
+    h0 = (_heldout(cfg, init), _heldout(ccfg, init, cw, float32=True),
+          _heldout(ccfg, init, cw))
     del init
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3257,7 +3333,9 @@ def _phase_train(failing: subprocess.Popen, ckpt: Path) -> dict:
     torch.cuda.synchronize()
     out["coded"] = {"losses": coded, "wall_s": time.perf_counter() - t0,
                     "peak_bytes": torch.cuda.max_memory_allocated(),
-                    "heldout": (h0[1], _heldout(ccfg, cparams, cw))}
+                    "heldout": (h0[1], _heldout(ccfg, cparams, cw,
+                                                float32=True)),
+                    "heldout_bf16": (h0[2], _heldout(ccfg, cparams, cw))}
     out["coded"].update(_timed_steps(ccfg, cparams, copt, cw, CODED_STEPS))
     del cparams, copt
     torch.cuda.empty_cache()
@@ -3354,8 +3432,10 @@ def _phase_train(failing: subprocess.Popen, ckpt: Path) -> dict:
         f"{GAP_CUT['seq']}: {out['cut_gap']['max_rel_gap']:.3e}; limit "
         f"{limit:.3e})")
     log(f"  held-out loss (step {HELDOUT_STEP}'s batch): uncoded "
-        f"{u['heldout'][0]:.5f} -> {u['heldout'][1]:.5f}, coded "
-        f"{c['heldout'][0]:.5f} -> {c['heldout'][1]:.5f}; mean step loss of "
+        f"{u['heldout'][0]:.5f} -> {u['heldout'][1]:.5f}, coded (float32 "
+        f"copy) {c['heldout'][0]:.5f} -> {c['heldout'][1]:.5f} (in bf16, "
+        f"unchecked: {c['heldout_bf16'][0]:.5f} -> "
+        f"{c['heldout_bf16'][1]:.5f}); mean step loss of "
         f"the first / last {FALL_WINDOW} steps: uncoded "
         f"{u['window_means'][0]:.4f} / {u['window_means'][1]:.4f}, coded "
         f"{c['window_means'][0]:.4f} / {c['window_means'][1]:.4f}")
@@ -5235,7 +5315,7 @@ def main(argv=None) -> int:
     drawer, paper_ops = start_paper_operands()
     t0 = time.perf_counter()
     ptxas = phase_build()
-    check_flash_instances(ptxas)
+    flash_sass = check_flash_sass(check_flash_instances(ptxas))
     sass = check_bf16_sass()
     drawer.join()
     log(f"build and operand drawing (8 pairs of 2048x32768, in a thread "
@@ -5345,6 +5425,10 @@ def main(argv=None) -> int:
          "library_ms": enc_main["library_ms"]},
     ]
     win = flash["window1024"]
+    flash_served = {"hymba_causal": flash["causal"],
+                    "qwen2_moe": families["flash_qwen2_moe"],
+                    "musicgen": families["flash_musicgen"],
+                    **{a: dense[f"flash_{a}"] for a, _, _ in DENSE_FLASH}}
     tr = train_k["train"]["launches"]
     flash_runs = {"hymba_served": lm["launches"]["flash_attention"],
                   "hymba_train": tr["flash_attention"],
@@ -5364,15 +5448,22 @@ def main(argv=None) -> int:
                  **{f"mesh_{k}": v["ssm_scan"]
                     for k, v in mesh_runs.items() if "ssm_scan" in v}}
     kernels += [
-        {"name": "flash_attention", "status": "ported", "route": "cuda",
+        {"name": "flash_attention", "status": "redesigned", "route": "cuda",
+         "kernel": FLASH_FWD,
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
          "launches": sum(flash_runs.values()),
          "launches_by_run": flash_runs,
+         f"{FLASH_FWD_OLD}_launches": flash_sass[f"{FLASH_FWD_OLD}_launches"],
+         "sass": flash_sass["sass"],
          "shape": win["shape"], "window": win["window"],
          "max_abs_err": win["max_abs_err"], "ms": win["ms"],
          "plain_ms": win["plain_ms"], "bound_ms": win["bound_ms"],
-         "bound_by": win["bound_by"], "library_ms": win["library_ms"]},
+         "bound_by": win["bound_by"], "library_ms": win["library_ms"],
+         # the served prefills' shapes (full causal): kernel, SDPA, bound
+         "served": {k: {f: r[f] for f in ("shape", "ms", "library_ms",
+                                          "bound_ms", "tflops")}
+                    for k, r in flash_served.items()}},
         {"name": "ssm_scan", "status": "ported", "route": "cuda",
          "source": "src/repro_torch/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan/kernel.py:55",
@@ -5432,6 +5523,7 @@ def main(argv=None) -> int:
              "engine": engine, "cluster": cluster,
              "coded_runtime": coded_runtime, "mesh": mesh,
              "train_kernels": train_k, "bf16": bf16, "bf16_sass": sass,
+             "flash_sass": flash_sass,
              "kernels": kernels},
             indent=2))
     print(card)

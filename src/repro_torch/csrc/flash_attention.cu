@@ -7,38 +7,65 @@
 // and skips fully masked blocks with pl.when, though the skipped blocks
 // still occupy grid steps.
 //
-// Bound on an H100: at hymba-1.5b's prefill (d=64, 25 query heads over 5 KV
-// heads, L=8192) a query-key pair costs 4*d operations (QK^T and PV) against
-// a few bytes of q, k, v and output per pair, so the kernel is bound by
-// operations, at the bf16 tensor-core rate.
+// Bound on an H100: a query-key pair costs 4*d operations (QK^T and PV)
+// against a few bytes of q, k, v and output per pair, so at every served
+// prefill (d = 64 ... 256, L = 8192, hymba's 25 query heads over 5 KV heads
+// to qwen2-moe's 16 over 16) the kernel is bound by operations, at the bf16
+// tensor-core rate (989 TFLOP/s dense): 1.11 ms at qwen2-moe-a2.7b's
+// 4 x 16 x 8192 x 128, causal.
 //
 // Two kernels, chosen by dtype (an explicit dispatch in the C entries):
 //
-// bf16 -> flash_mma_kernel, FlashAttention-2 on the tensor cores.  A block
-// of 4 warps owns BQ query rows of one query head; each warp owns 16*MT
-// rows (MT = 2 for d <= 64, else 1).  QK^T and PV are
-// mma.sync.m16n8k16 bf16 products with float32 accumulators, fed by
-// ldmatrix from shared memory (.trans for V, whose rows are keys).  Q is
-// copied to shared memory once and, for d <= 128, held in registers as
-// mma fragments; at d = 256 it is re-read from shared memory each tile, to
-// keep the 128 float32 accumulators of a row slice in registers.  K and V
-// tiles of BKV keys (64; 32 at d = 256) arrive by cp.async 16-byte copies
-// into a ring of two stages, so the next tile loads while this one is
-// multiplied.  Rows are padded by 16 bytes in shared memory so that the 8
-// rows of an ldmatrix hit distinct banks.  Scores stay in registers: the
-// row max and sum are reduced over the 4 lanes of a quad, P is rescaled in
-// the exp2 domain (scale * log2 e folded in) and rounded to bf16 for the PV
-// product, as SDPA does; m, l and O stay in float32 registers.  GQA reads
-// K/V of head h / group; the heads of a group are neighbouring blocks, so
-// their K/V tiles come from L2.  The grid is (B*H, q tiles) with the q
-// tile on the slow axis, reversed, so the longest causal tiles launch
-// first over all heads.  Per-element masks run only on the tiles of a warp
-// that cross the diagonal, the window's first key or Lkv; a tile no row of
-// a warp may see is skipped by that warp.  cp.async needs 16-byte aligned
-// rows: the entry returns UNSUPPORTED unless every pointer is 16-byte
-// aligned and every batch, head and position stride is a multiple of 8
-// elements (the wrapper copies such an operand once; hymba's
-// (B, L, H, d) -> (B, H, L, d) views, position stride H*d, need no copy).
+// bf16 -> flash_fwd_wg_kernel<D>, FlashAttention-3's shape on Hopper's
+// warpgroup products, the only way to the tensor cores' full rate; TMA
+// computes the tiles' addresses, so no thread spends instructions on
+// copies, and a warpgroup of its own keeps them in flight:
+// - A block owns BQ = 128 query rows of one query head and runs three
+//   warpgroups.  One thread of the producer warpgroup issues every TMA load
+//   (cp.async.bulk.tensor.4d): Q once, then K and V tiles of BKV keys (128;
+//   64 at d = 256) into two rings of STAGES stages (4 at d <= 64, 3 at 128,
+//   2 at 256; 145, 225 and 193 KB of shared memory with Q), each stage with
+//   a full mbarrier (expect_tx, completed by the copies' bytes) and an
+//   empty one (one arrival from each consumer warp).  The producer keeps 24
+//   registers, the consumers take 240 (setmaxnreg).
+// - The tensor maps are 4-D, (d, L, heads, batch) at the view's own
+//   strides, built on the host by cuTensorMapEncodeTiled (found through the
+//   runtime: no -lcuda), so hymba's (B, L, H, d) -> (B, H, L, d) views are
+//   read without a copy, and rows past Lq and Lkv arrive as TMA's zero
+//   fill.  Each box is one panel of up to 64 columns, swizzled to rows of
+//   SW = min(2 d, 128) bytes, which wgmma's descriptors read as they lie.
+// - Two consumer warpgroups own 64 rows each.  S = Q K^T is wgmma
+//   m64nBKVk16 with both operands K-major in shared memory; P is rounded to
+//   bf16 in registers, as SDPA does, and is the register A operand of O +=
+//   P V, whose B operand is the V tile as it lies (keys x d: MN-major, read
+//   through the transpose-B immediate).  Tile j's S is issued before tile
+//   j-1's P V, so its softmax runs while that product does; a K stage is
+//   released once its S is done, a V stage once its P V is.  At d <= 128
+//   the two warpgroups take turns issuing (FA-3's ping-pong, on named
+//   barriers), so that one's softmax runs while the other's products do:
+//   at d = 64 the exps of a tile take as long as its products.
+// - No barrier wait sits between the fence and a tile's products, and the
+//   warpgroup index is made warp-uniform (__shfl_sync), so that every
+//   branch around a product is uniform as the compiler sees it: otherwise
+//   ptxas serializes every wgmma (its "C7520 ... WG.AR in divergent path"
+//   note), which costs 30 % at qwen2-moe's shape.
+// - Online softmax in float32 registers in the exp2 domain (scale * log2 e
+//   folded in); the row max and sum over the 4 lanes of a quad.  GQA reads
+//   K/V of head h / group.  The grid is one block per (batch x head, q
+//   tile), ordered as FA-3's L2 swizzle: the heads in chunks of whole query
+//   groups whose K and V fit in 32 MB of L2, and in a chunk the longest
+//   causal tiles first over the chunk's heads, so a head's q tiles find its
+//   K/V tiles in L2.  Per-element masks run
+//   only on the tiles that cross the diagonal, the window's first key or
+//   Lkv for a warpgroup; a warpgroup waits out and releases, without a
+//   product, the tiles none of its rows sees.
+// - TMA needs every global base and stride on 16 bytes: the entry returns
+//   UNSUPPORTED unless every pointer is 16-byte aligned and every batch,
+//   head and position stride is a multiple of 8 elements (the wrapper's
+//   tma_aligned, which copies such an operand once).
+// - Not done: a persistent grid (a block's set-up and the wait for its
+//   first tiles take 3-14 % of a warpgroup's cycles,
+//   tools/flash_phase_clocks.py), 3 consumer warpgroups at d = 64, fp8.
 //
 // float32 -> flash_simt_kernel, the first design, on the CUDA cores: the
 // tensor cores would round q, k, v to bf16 or TF32, which the float32
@@ -64,17 +91,22 @@
 // (B, L, H, d) -> (B, H, L, d) views need no copy.  Each C entry returns
 // cudaGetLastError() of its launch.
 
-#include <cuda_bf16.h>
+#include <cuda.h>           // CUtensorMap and its enums only: the encoder
+#include <cuda_bf16.h>      // is found at run time (no -lcuda)
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
 
 constexpr int UNSUPPORTED = -1;     // no instance takes the arguments
 constexpr int MAX_GRID_YZ = 65535;
+// the K and V bytes a chunk of the bf16 forward's grid may keep in the
+// 50 MB L2 (FlashAttention-3's figure)
+constexpr long long L2_CHUNK_BYTES = 32LL << 20;
 constexpr unsigned FULL = 0xffffffffu;
 
 // ------------------------------------------------ float32: CUDA cores
@@ -244,21 +276,8 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ------------------------------------------------ bf16: tensor cores
 
 using bf16 = __nv_bfloat16;
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-template <int D>
-struct MmaTile {
-    static constexpr int MT = D <= 64 ? 2 : 1;        // m16 tiles per warp
-    static constexpr int BQ = 16 * MT * MMA_WARPS;    // query rows per block
-    static constexpr int BKV = D <= 128 ? 64 : 32;    // keys per tile
-    static constexpr int LD = D + 8;                  // row pitch (elements)
-    static constexpr int STAGES = 2;                  // K/V ring
-    static constexpr bool QREG = D <= 128;            // Q fragments in regs
-    static constexpr int SMEM = (BQ + 2 * STAGES * BKV) * LD * 2;
-};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -270,37 +289,9 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                  "l"(src), "r"(bytes));
 }
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float ex2(float x) {     // 2^x, -inf -> 0
@@ -312,271 +303,6 @@ __device__ __forceinline__ float ex2(float x) {     // 2^x, -inf -> 0
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4*g + t.  A (16x16):
-// a0 (row g, cols 2t, 2t+1), a1 (row g+8), a2 (cols +8), a3 (row g+8,
-// cols +8).  B (16x8): b0 (k 2t, 2t+1; n g), b1 (k +8).  C (16x8): c0, c1
-// (row g, cols 2t, 2t+1), c2, c3 (row g+8).  An ldmatrix.x4 gives matrix
-// i's fragment from the 8 row addresses of lanes 8i..8i+7.
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H,
-                 int group, int Lq, int Lkv, int causal, int window,
-                 int q_offset, float scale_log2, int64_t sqb, int64_t sqh,
-                 int64_t sql, int64_t skb, int64_t skh, int64_t skl,
-                 int64_t svb, int64_t svh, int64_t svl, int64_t sob,
-                 int64_t soh, int64_t sol) {
-    using C = MmaTile<D>;
-    constexpr int MT = C::MT, BQ = C::BQ, BKV = C::BKV, LD = C::LD;
-    constexpr int NT = BKV / 8;          // n8 tiles of scores per m16 tile
-    constexpr int DT = D / 8;            // n8 tiles of the output
-    constexpr int CH = D / 8;            // 16-byte chunks per row
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem);            // [BQ][LD]
-    bf16* Ks = Qs + BQ * LD;                             // [STAGES][BKV][LD]
-    bf16* Vs = Ks + C::STAGES * BKV * LD;
-
-    const int h = blockIdx.x % H;
-    const int64_t b = blockIdx.x / H;
-    const int hk = h / group;
-    const int q_lo = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-
-    const bf16* qb = q + b * sqb + h * sqh;
-    const bf16* kb = k + b * skb + hk * skh;
-    const bf16* vb = v + b * svb + hk * svh;
-
-    // the keys any row of this block may see: the causal mask ends them at
-    // the tile's last query, the window starts them W-1 before its first
-    const int q_hi = min(q_lo + BQ, Lq) - 1;
-    int kv_lo = 0, kv_hi = Lkv - 1;
-    if (causal) kv_hi = min(kv_hi, q_offset + q_hi);
-    if (window > 0) kv_lo = max(0, q_offset + q_lo - window + 1);
-    const int n_tiles = kv_hi >= kv_lo ? (kv_hi - kv_lo) / BKV + 1 : 0;
-
-    for (int c = tid; c < BQ * CH; c += MMA_THREADS) {   // rows past Lq: 0
-        const int r = c / CH, cc = c % CH;
-        const bool ok = q_lo + r < Lq;
-        cp_async16(smem_addr(Qs + r * LD + cc * 8),
-                   ok ? qb + (int64_t)(q_lo + r) * sql + cc * 8 : qb,
-                   ok ? 16 : 0);
-    }
-    auto load_kv = [&](int tile, int stage) {            // rows past Lkv: 0
-        const int kv0 = kv_lo + tile * BKV;
-        bf16* kd = Ks + stage * BKV * LD;
-        bf16* vd = Vs + stage * BKV * LD;
-        for (int c = tid; c < BKV * CH; c += MMA_THREADS) {
-            const int r = c / CH, cc = c % CH;
-            const int kp = kv0 + r;
-            const bool ok = kp < Lkv;
-            cp_async16(smem_addr(kd + r * LD + cc * 8),
-                       ok ? kb + (int64_t)kp * skl + cc * 8 : kb,
-                       ok ? 16 : 0);
-            cp_async16(smem_addr(vd + r * LD + cc * 8),
-                       ok ? vb + (int64_t)kp * svl + cc * 8 : vb,
-                       ok ? 16 : 0);
-        }
-    };
-    if (n_tiles > 0) load_kv(0, 0);
-    cp_async_commit();
-
-    // this warp's rows, and their absolute positions
-    const int w_row = warp * 16 * MT;
-    const int wq_lo = q_lo + w_row;
-    const bool warp_live = wq_lo < Lq;
-    const int wpos_lo = q_offset + wq_lo;
-    const int wpos_hi = q_offset + min(wq_lo + 16 * MT, Lq) - 1;
-
-    float acc[MT][DT][4];
-    float m_run[MT][2], l_run[MT][2];        // per row g and g+8; l per lane
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][dt][e] = 0.f;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            m_run[mt][r] = -INFINITY;
-            l_run[mt][r] = 0.f;
-        }
-    }
-    uint32_t qf[C::QREG ? MT : 1][C::QREG ? D / 16 : 1][4];
-    // lane's ldmatrix row address within a 16x16 A tile / a B tile pair
-    const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-    const int kb_row = (lane >> 4) * 8 + (lane & 7);
-    const int kb_col = ((lane >> 3) & 1) * 8;
-    const int vb_row = ((lane >> 3) & 1) * 8 + (lane & 7);
-    const int vb_col = (lane >> 4) * 8;
-    const bf16* qw = Qs + (w_row + a_row) * LD + a_col;   // this lane's Q row
-
-    for (int it = 0; it < n_tiles; ++it) {
-        if (it + 1 < n_tiles) load_kv(it + 1, (it + 1) & 1);
-        cp_async_commit();
-        cp_async_wait<1>();                  // Q and tile it have landed
-        __syncthreads();
-        if constexpr (C::QREG) {
-            if (it == 0) {
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                    for (int kc = 0; kc < D / 16; ++kc)
-                        ldmatrix_x4(qf[mt][kc],
-                                    smem_addr(qw + mt * 16 * LD + kc * 16));
-            }
-        }
-        const int kv0 = kv_lo + it * BKV;
-        const bf16* kt = Ks + (it & 1) * BKV * LD;
-        const bf16* vt = Vs + (it & 1) * BKV * LD;
-        const bool skip = !warp_live || (causal && kv0 > wpos_hi) ||
-                          (window > 0 && kv0 + BKV - 1 <= wpos_lo - window);
-        if (!skip) {
-            float s[MT][NT][4];
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
-            // S = Q K^T
-#pragma unroll
-            for (int kc = 0; kc < D / 16; ++kc) {
-                uint32_t qa[MT][4];
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                    if constexpr (C::QREG) {
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) qa[mt][e] = qf[mt][kc][e];
-                    } else {
-                        ldmatrix_x4(qa[mt],
-                                    smem_addr(qw + mt * 16 * LD + kc * 16));
-                    }
-                }
-#pragma unroll
-                for (int np = 0; np < NT / 2; ++np) {
-                    uint32_t kf[4];
-                    ldmatrix_x4(kf, smem_addr(kt + (np * 16 + kb_row) * LD +
-                                              kc * 16 + kb_col));
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt) {
-                        mma_bf16(s[mt][2 * np], qa[mt], kf[0], kf[1]);
-                        mma_bf16(s[mt][2 * np + 1], qa[mt], kf[2], kf[3]);
-                    }
-                }
-            }
-            // masks, only where the tile crosses an edge for this warp
-            const bool edge = kv0 + BKV > Lkv ||
-                              (causal && kv0 + BKV - 1 > wpos_lo) ||
-                              (window > 0 && kv0 <= wpos_hi - window);
-            if (edge) {
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) {
-                            const int qpos =
-                                wpos_lo + mt * 16 + g + (e >> 1) * 8;
-                            const int kp = kv0 + nt * 8 + 2 * t + (e & 1);
-                            const bool keep =
-                                kp < Lkv && (!causal || kp <= qpos) &&
-                                (window <= 0 || qpos - kp < window);
-                            if (!keep) s[mt][nt][e] = -INFINITY;
-                        }
-            }
-            // online softmax in the exp2 domain
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-                for (int r = 0; r < 2; ++r) {
-                    float mx = -INFINITY;
-#pragma unroll
-                    for (int nt = 0; nt < NT; ++nt)
-                        mx = fmaxf(mx, fmaxf(s[mt][nt][2 * r],
-                                             s[mt][nt][2 * r + 1]));
-                    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-                    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-                    const float m_new = fmaxf(m_run[mt][r], mx * scale_log2);
-                    const float safe = m_new == -INFINITY ? 0.f : m_new;
-                    const float corr = ex2(m_run[mt][r] - safe);
-                    float sum = 0.f;
-#pragma unroll
-                    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-                        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-                            const float p =
-                                ex2(fmaf(s[mt][nt][e], scale_log2, -safe));
-                            s[mt][nt][e] = p;
-                            sum += p;
-                        }
-                    }
-                    l_run[mt][r] = corr * l_run[mt][r] + sum;
-                    m_run[mt][r] = m_new;
-#pragma unroll
-                    for (int dt = 0; dt < DT; ++dt) {
-                        acc[mt][dt][2 * r] *= corr;
-                        acc[mt][dt][2 * r + 1] *= corr;
-                    }
-                }
-            }
-            // O += P V, P rounded to bf16 in registers
-#pragma unroll
-            for (int kk = 0; kk < BKV / 16; ++kk) {
-                uint32_t pa[MT][4];
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                    pa[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-                    pa[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-                    pa[mt][2] =
-                        pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-                    pa[mt][3] =
-                        pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-                }
-#pragma unroll
-                for (int dp = 0; dp < D / 16; ++dp) {
-                    uint32_t vf[4];
-                    ldmatrix_x4_trans(vf, smem_addr(vt + (kk * 16 + vb_row) * LD
-                                                    + dp * 16 + vb_col));
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt) {
-                        mma_bf16(acc[mt][2 * dp], pa[mt], vf[0], vf[1]);
-                        mma_bf16(acc[mt][2 * dp + 1], pa[mt], vf[2], vf[3]);
-                    }
-                }
-            }
-        }
-        __syncthreads();                     // stage it & 1 is free again
-    }
-    cp_async_wait<0>();
-
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            float l = l_run[mt][r];
-            l += __shfl_xor_sync(FULL, l, 1);
-            l += __shfl_xor_sync(FULL, l, 2);
-            const float inv = l == 0.f ? 1.f : 1.f / l;
-            const int qi = wq_lo + mt * 16 + g + 8 * r;
-            if (qi < Lq) {
-                // log-sum-exp in natural units (m is in the exp2 domain);
-                // 0 (finite) for a row that sees no key
-                if (lse != nullptr && t == 0)
-                    lse[(b * H + h) * Lq + qi] =
-                        l > 0.f ? (m_run[mt][r] + log2f(l)) * LN2 : 0.f;
-                bf16* orow = o + b * sob + h * soh + (int64_t)qi * sol + 2 * t;
-#pragma unroll
-                for (int dt = 0; dt < DT; ++dt)
-                    *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
-                        __floats2bfloat162_rn(acc[mt][dt][2 * r] * inv,
-                                              acc[mt][dt][2 * r + 1] * inv);
-            }
-        }
-    }
 }
 
 
@@ -1006,6 +732,40 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
 }
 
 template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
                                              const uint32_t (&a)[4],
                                              uint64_t b) {
@@ -1091,6 +851,65 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -1613,6 +1432,362 @@ flash_bwd_wg_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+// ---- the bf16 forward: wgmma fed by TMA (the design in the note at the
+// head of this file)
+
+template <int D>
+struct WgFwd {
+    // two consumer warpgroups of 64 query rows, then a producer warpgroup
+    // one thread of which issues every TMA load (setmaxnreg: 2 x 128 x 240
+    // + 128 x 24 = 64,512 registers, what 384 threads of 168 hold)
+    static constexpr int CONSUMERS = 256;
+    static constexpr int THREADS = CONSUMERS + 128;
+    static constexpr int BQ = 128;                      // query rows a block
+    static constexpr int BKV = D <= 128 ? 128 : 64;     // keys a tile
+    static constexpr int STAGES = D <= 64 ? 4 : D <= 128 ? 3 : 2;
+    static constexpr int SW = D < 64 ? 2 * D : 128;     // bytes a tile row
+    static constexpr int PCOLS = SW / 2;                // columns a panel
+    static constexpr int PANELS = D / PCOLS;
+    static constexpr int KSTEPS = SW / 32;              // k16 steps a row
+    static constexpr int QBYTES = BQ * D * 2;
+    static constexpr int KVBYTES = BKV * D * 2;         // a K (or V) tile
+    static constexpr int ALIGN = 1024;                  // swizzle atoms
+    static constexpr int BARS = 8 * (1 + 4 * STAGES);
+    // the warpgroups take turns issuing their products where the softmax
+    // is long beside them (d <= 128); at d = 256 turns only add waits
+    static constexpr bool TURNS = D <= 128;
+    static constexpr int SMEM = ALIGN + QBYTES + 2 * STAGES * KVBYTES + BARS;
+};
+
+// wgmma's descriptor of a tile TMA wrote swizzled to rows of SW bytes (128,
+// 64, 32: layout types 1, 2, 3 in bits 62-63); the tiles start on 1 KB,
+// so the base offset field stays 0
+template <int SW>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+    constexpr uint64_t mode = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+    return wg_desc(addr, lbo, sbo) | mode << 62;
+}
+__device__ __forceinline__ void mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// arrives on bar, which then also waits for `bytes` of TMA copies
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            smem_addr(bar)),
+        "r"(bytes)
+        : "memory");
+}
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(map))
+                 : "memory");
+}
+// named barriers 1 and 2: the two consumer warpgroups' turns (0 is
+// __syncthreads)
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// box (c0, c1, c2, c3) of a 4-D tensor map into shared memory at dst; the
+// copy's bytes complete on bar
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+        "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// q, k, v are read through 4-D tensor maps (d, L, heads, batch); o is
+// written from registers at its (batch, head, position) strides.
+template <int D>
+__global__ void __launch_bounds__(WgFwd<D>::THREADS, 1)
+flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    bf16* __restrict__ o, float* __restrict__ lse, int BH,
+                    int H, int group, int chunk, int Lq, int Lkv, int causal,
+                    int window, int q_offset, float scale_log2, int64_t sob,
+                    int64_t soh, int64_t sol) {
+    using C = WgFwd<D>;
+    constexpr int BQ = C::BQ, BKV = C::BKV, STAGES = C::STAGES, SW = C::SW;
+    constexpr int KS = C::KSTEPS;
+    extern __shared__ unsigned char smem[];
+    // Q, the K ring and the V ring from the next 1 KB boundary on, the
+    // barriers after them
+    const uint32_t raw = smem_addr(smem);
+    const uint32_t qs = (raw + C::ALIGN - 1) & ~(uint32_t)(C::ALIGN - 1);
+    const uint32_t ks = qs + C::QBYTES;
+    const uint32_t vs = ks + STAGES * C::KVBYTES;
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(
+        smem + (vs + STAGES * C::KVBYTES - raw));
+    uint64_t* k_full = q_full + 1;
+    uint64_t* k_empty = k_full + STAGES;
+    uint64_t* v_full = k_empty + STAGES;
+    uint64_t* v_empty = v_full + STAGES;
+
+    // this block's (batch x head, query tile), FA-3's L2 swizzle: the heads
+    // in chunks of `chunk` (whole query groups) whose K and V fit in L2; in
+    // a chunk the longest causal tiles first, the chunk's heads neighbours
+    const int n_qt = (Lq + BQ - 1) / BQ;
+    const int per = chunk * n_qt;
+    const int c0 = blockIdx.x / per * chunk, w = blockIdx.x % per;
+    const int heads = min(chunk, BH - c0);
+    const int bh = c0 + w % heads;
+    const int h = bh % H, b = bh / H, hk = h / group;
+    const int q_lo = (n_qt - 1 - w / heads) * BQ;
+    const int tid = threadIdx.x;
+
+    // the keys any row of this block may see: the causal mask ends them at
+    // the tile's last query, the window starts them W-1 before its first
+    const int q_hi = min(q_lo + BQ, Lq) - 1;
+    int kv_lo = 0, kv_hi = Lkv - 1;
+    if (causal) kv_hi = min(kv_hi, q_offset + q_hi);
+    if (window > 0) kv_lo = max(0, q_offset + q_lo - window + 1);
+    const int n_tiles = kv_hi >= kv_lo ? (kv_hi - kv_lo) / BKV + 1 : 0;
+
+    if (tid == 0) {
+        mbar_init(q_full, 1);
+        for (int st = 0; st < STAGES; ++st) {
+            mbar_init(&k_full[st], 1);                   // the producer
+            mbar_init(&v_full[st], 1);
+            mbar_init(&k_empty[st], C::CONSUMERS / 32);  // consumer warps
+            mbar_init(&v_empty[st], C::CONSUMERS / 32);
+        }
+        mbar_init_fence();
+    }
+    __syncthreads();
+
+    // the role, uniform over each warpgroup as the compiler can see (the
+    // register counts of setmaxnreg hold per warpgroup)
+    if (__shfl_sync(FULL, tid / 128, 0) == C::CONSUMERS / 128) {
+        regs_dec<24>();
+        if (tid == C::CONSUMERS) {
+            // Q once, then each K and V tile into its stage once both
+            // consumer warpgroups have left it; rows past Lq and Lkv come
+            // in as TMA's zero fill
+            prefetch_map(&map_q);
+            prefetch_map(&map_k);
+            prefetch_map(&map_v);
+            mbar_expect_tx(q_full, C::QBYTES);
+            for (int p = 0; p < C::PANELS; ++p)
+                tma_load_4d(qs + p * BQ * SW, &map_q, q_full, p * C::PCOLS,
+                            q_lo, h, b);
+            for (int it = 0; it < n_tiles; ++it) {
+                const int st = it % STAGES, n = it / STAGES;
+                const int kv0 = kv_lo + it * BKV;
+                const uint32_t kt = ks + st * C::KVBYTES;
+                const uint32_t vt = vs + st * C::KVBYTES;
+                if (n > 0) mbar_wait(&k_empty[st], (n - 1) & 1);
+                mbar_expect_tx(&k_full[st], C::KVBYTES);
+                for (int p = 0; p < C::PANELS; ++p)
+                    tma_load_4d(kt + p * BKV * SW, &map_k, &k_full[st],
+                                p * C::PCOLS, kv0, hk, b);
+                if (n > 0) mbar_wait(&v_empty[st], (n - 1) & 1);
+                mbar_expect_tx(&v_full[st], C::KVBYTES);
+                for (int p = 0; p < C::PANELS; ++p)
+                    tma_load_4d(vt + p * BKV * SW, &map_v, &v_full[st],
+                                p * C::PCOLS, kv0, hk, b);
+            }
+        }
+        return;
+    }
+
+    // the consumers: this warpgroup's 64 query rows; this thread's rows
+    // 16 warp + g and + 8
+    regs_inc<240>();
+    // the warpgroup, uniform as the compiler can see, and with it every
+    // bound below: a branch around a product then diverges nowhere
+    const int wg = __shfl_sync(FULL, tid >> 7, 0);
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int wq_lo = q_lo + wg * 64;
+    const int wpos_lo = q_offset + wq_lo;
+    const int wpos_hi = q_offset + min(wq_lo + 64, Lq) - 1;
+    // the tiles in which this warpgroup's rows see a key: [t_lo, t_hi]
+    int t_lo = 0, t_hi = n_tiles - 1;
+    if (wq_lo >= Lq) {
+        t_lo = n_tiles;
+    } else {
+        if (causal) t_hi = min(t_hi, (wpos_hi - kv_lo) / BKV);
+        if (window > 0) t_lo = max(0, wpos_lo - window + 1 - kv_lo) / BKV;
+    }
+
+    float acc[D / 2], s[BKV / 2];
+    uint32_t pf[BKV / 16][4];            // P of the last tile, bf16
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const uint32_t qa = qs + wg * 64 * SW;
+    auto release = [&](uint64_t* bar) {  // this warp is done with a stage
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar);
+    };
+    // FA-3's ping-pong: every tile is a turn of each warpgroup, and the two
+    // take turns issuing their products (warpgroup 0 first), so that one's
+    // softmax runs while the other's products do; a turn is waited for on
+    // the warpgroup's named barrier and handed on to the other's
+    auto turn_wait = [&]() {
+        if (C::TURNS) bar_sync(1 + wg, C::CONSUMERS);
+    };
+    auto turn_end = [&](int it) {        // warpgroup 1's last is not taken
+        if (C::TURNS && (wg == 0 || it + 1 < n_tiles))
+            bar_arrive(2 - wg, C::CONSUMERS);
+    };
+    auto pass = [&](int it) {            // a tile no row here sees
+        const int st = it % STAGES, par = (it / STAGES) & 1;
+        turn_wait();
+        turn_end(it);
+        mbar_wait(&k_full[st], par);
+        release(&k_empty[st]);
+        mbar_wait(&v_full[st], par);
+        release(&v_empty[st]);
+    };
+    // O += P V over the V tile in stage st: V as it lies, keys x d, is
+    // MN-major for wgmma (LBO the next panel of columns, SBO 8 keys)
+    auto pv = [&](int st) {
+        const uint32_t vt = vs + st * C::KVBYTES;
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+            wgmma_rs<D>(acc, pf[kk],
+                        sw_desc<SW>(vt + kk * 16 * SW, BKV * SW, 8 * SW));
+        wg_commit();
+    };
+
+    // one live tile: S = Q K^T issued, then (PEND) the last tile's P V
+    // behind it on the tensor cores, so that this tile's softmax runs while
+    // that product does.  Both barrier waits come before the fence, and
+    // every branch around a product is uniform as the compiler sees it:
+    // ptxas serializes the products of a stage a divergent path crosses.
+    auto tile = [&](int it, auto pend) {
+        constexpr bool PEND = decltype(pend)::value;
+        const int st = it % STAGES, kv0 = kv_lo + it * BKV;
+        const int sp = (it + STAGES - 1) % STAGES;   // the last tile's stage
+        const uint32_t kt = ks + st * C::KVBYTES;
+        mbar_wait(&k_full[st], (it / STAGES) & 1);
+        if constexpr (PEND) mbar_wait(&v_full[sp], ((it - 1) / STAGES) & 1);
+        turn_wait();
+        // both K-major: a k16 step moves 32 bytes along a row, 4 steps a
+        // 128-byte panel
+        wg_fence();
+#pragma unroll
+        for (int kc = 0; kc < D / 16; ++kc)
+            wgmma_ss<BKV>(
+                s,
+                sw_desc<SW>(qa + kc / KS * BQ * SW + kc % KS * 32, 16, 8 * SW),
+                sw_desc<SW>(kt + kc / KS * BKV * SW + kc % KS * 32, 16,
+                            8 * SW),
+                kc);
+        wg_commit();
+        if constexpr (PEND) pv(sp);
+        turn_end(it);
+        wg_wait<PEND ? 1 : 0>();         // S is done; P V runs on
+        hold(s);
+        release(&k_empty[st]);
+        // masks, only where the tile crosses an edge for this warpgroup
+        const bool edge = kv0 + BKV > Lkv ||
+                          (causal && kv0 + BKV - 1 > wpos_lo) ||
+                          (window > 0 && kv0 <= wpos_hi - window);
+        if (edge) {
+#pragma unroll
+            for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int qpos = wpos_lo + warp * 16 + g + (e >> 1) * 8;
+                    const int kp = kv0 + 8 * j + 2 * t + (e & 1);
+                    const bool keep = kp < Lkv && (!causal || kp <= qpos) &&
+                                      (window <= 0 || qpos - kp < window);
+                    if (!keep) s[4 * j + e] = -INFINITY;
+                }
+        }
+        // online softmax in the exp2 domain; accumulator element 4 j +
+        // 2 r + e is row 16 warp + g + 8 r, column 8 j + 2 t + e
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < BKV / 8; ++j)
+                mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+            const float m_new = fmaxf(m_run[r], mx * scale_log2);
+            const float safe = m_new == -INFINITY ? 0.f : m_new;
+            corr[r] = ex2(m_run[r] - safe);
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+                for (int e = 2 * r; e < 2 * r + 2; ++e) {
+                    const float p = ex2(fmaf(s[4 * j + e], scale_log2, -safe));
+                    s[4 * j + e] = p;
+                    sum += p;
+                }
+            l_run[r] = corr[r] * l_run[r] + sum;
+            m_run[r] = m_new;
+        }
+        if constexpr (PEND) {
+            wg_wait<0>();
+            hold(acc);
+            hold(pf);
+            release(&v_empty[sp]);
+        }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[4 * j + e] *= corr[e >> 1];
+        to_frags<BKV>(pf, s);            // P rounded to bf16, as SDPA does
+    };
+
+    mbar_wait(q_full, 0);                // every TMA load is waited for
+    if (C::TURNS && wg == 1 && n_tiles > 0) bar_arrive(1, C::CONSUMERS);
+    for (int it = 0; it < min(t_lo, n_tiles); ++it) pass(it);
+    if (t_lo <= t_hi) {
+        tile(t_lo, std::false_type{});
+        for (int it = t_lo + 1; it <= t_hi; ++it) tile(it, std::true_type{});
+        // the last tile's P V
+        const int sp = t_hi % STAGES;
+        mbar_wait(&v_full[sp], (t_hi / STAGES) & 1);
+        wg_fence();
+        pv(sp);
+        wg_wait<0>();
+        hold(acc);
+        hold(pf);
+        release(&v_empty[sp]);
+    }
+    for (int it = max(t_hi + 1, t_lo); it < n_tiles; ++it) pass(it);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float l = l_run[r];
+        l += __shfl_xor_sync(FULL, l, 1);
+        l += __shfl_xor_sync(FULL, l, 2);
+        const float inv = l == 0.f ? 1.f : 1.f / l;
+        const int qi = wq_lo + warp * 16 + g + 8 * r;
+        if (qi < Lq) {
+            // log-sum-exp in natural units (m is in the exp2 domain); 0
+            // (finite) for a row that sees no key
+            if (lse != nullptr && t == 0)
+                lse[((int64_t)b * H + h) * Lq + qi] =
+                    l > 0.f ? (m_run[r] + log2f(l)) * LN2 : 0.f;
+            bf16* orow = o + b * sob + h * soh + (int64_t)qi * sol + 2 * t;
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j)
+                *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+                    __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                          acc[4 * j + 2 * r + 1] * inv);
+        }
+    }
+}
+
 // ------------------------------------------------ launches and entries
 
 bool aligned16(const void* p) {
@@ -1669,30 +1844,110 @@ cudaError_t allow_smem(K kernel, int bytes, bool& done) {
     return e;
 }
 
-template <int D>
-int launch_mma(const FwdArgs& a) {
-    using C = MmaTile<D>;
-    const int q_tiles = (a.Lq + C::BQ - 1) / C::BQ;
-    if (q_tiles > MAX_GRID_YZ || (long long)a.B * a.H > 0x7fffffffLL)
-        return UNSUPPORTED;
-    // cp.async copies 16-byte rows: 8 bf16 elements
-    if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
-        !aligned16(a.o))
-        return UNSUPPORTED;
+// cuTensorMapEncodeTiled, from the driver through the runtime: the library
+// links no libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+        const cudaError_t e = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+        if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// a bf16 (B, heads, L, D) operand with a contiguous last dim and
+// (batch, head, position) strides st, in elements, as a 4-D map (D, L,
+// heads, B) of boxes of SW / 2 columns x rows, swizzled to rows of SW
+// bytes; rows past L read as zeros.  A dim of extent 1 comes with stride
+// 0 (never stepped): the map gets the row's bytes there.
+template <int SW>
+bool encode_4d(EncodeTiled enc, CUtensorMap* map, const void* base, int D,
+               int L, int heads, int B, const long long* st, int rows) {
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L,
+                                (cuuint64_t)heads, (cuuint64_t)B};
+    auto bytes = [&](int extent, long long s) {
+        return (cuuint64_t)(extent > 1 ? s : D) * 2;
+    };
+    const cuuint64_t strides[3] = {bytes(L, st[2]), bytes(heads, st[1]),
+                                   bytes(B, st[0])};
+    const cuuint32_t box[4] = {SW / 2, (cuuint32_t)rows, 1, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    const CUtensorMapSwizzle swizzle =
+        SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+        : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+               const_cast<void*>(base), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What TMA can address, and o's bf16 pairs need: every pointer on 16
+// bytes, every (batch, head, position) stride a multiple of 8 elements.
+// The wrapper applies the same rule (tma_aligned in
+// kernels/flash_attention/ops.py) and copies an operand that fails it.
+bool tma_aligned(const FwdArgs& a) {
+    const void* ptrs[] = {a.q, a.k, a.v, a.o};
+    for (const void* p : ptrs)
+        if (!aligned16(p)) return false;
     for (int i = 0; i < 12; ++i)
-        if (a.st[i] % 8) return UNSUPPORTED;
+        if (a.st[i] % 8) return false;
+    return true;
+}
+
+template <int D>
+int launch_wg_fwd(const FwdArgs& a) {
+    using C = WgFwd<D>;
+    const long long q_tiles = (a.Lq + C::BQ - 1) / C::BQ;
+    if ((long long)a.B * a.H * q_tiles > 0x7fffffffLL || !tma_aligned(a))
+        return UNSUPPORTED;
+    const EncodeTiled enc = encode_tiled();
+    if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
     static bool smem_set = false;
-    const cudaError_t e = allow_smem(flash_mma_kernel<D>, C::SMEM, smem_set);
+    const cudaError_t e =
+        allow_smem(flash_fwd_wg_kernel<D>, C::SMEM, smem_set);
     if (e != cudaSuccess) return (int)e;
+    // with no keys the K and V maps are never read: they are encoded over q
+    const bool keys = a.Lkv > 0;
+    const long long* kst = keys ? a.st + 3 : a.st;
+    const long long* vst = keys ? a.st + 6 : a.st;
+    const int Lk = keys ? a.Lkv : a.Lq, Hk = keys ? a.Hkv : a.H;
+    CUtensorMap mq, mk, mv;
+    if (!encode_4d<C::SW>(enc, &mq, a.q, D, a.Lq, a.H, a.B, a.st, C::BQ) ||
+        !encode_4d<C::SW>(enc, &mk, keys ? a.k : a.q, D, Lk, Hk, a.B, kst,
+                          C::BKV) ||
+        !encode_4d<C::SW>(enc, &mv, keys ? a.v : a.q, D, Lk, Hk, a.B, vst,
+                          C::BKV))
+        return (int)cudaErrorInvalidValue;
+    // the query heads a chunk of the grid takes: whole groups whose K and
+    // V (4 Lkv D bytes a KV head) fit in L2_CHUNK_BYTES
+    const int group = a.H / a.Hkv;
+    const long long BH = (long long)a.B * a.H;
+    const long long kv_head = 4LL * (a.Lkv > 0 ? a.Lkv : 1) * D;
+    const long long chunk = std::min(
+        BH, group * std::max(1LL, L2_CHUNK_BYTES / kv_head));
     const long long* st = a.st;
-    dim3 grid(a.B * a.H, q_tiles);
-    flash_mma_kernel<D><<<grid, MMA_THREADS, C::SMEM,
-                          (cudaStream_t)a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.H,
-        a.H / a.Hkv, a.Lq, a.Lkv, a.causal, a.window, a.q_offset,
-        a.scale * LOG2E, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-        st[7], st[8], st[9], st[10], st[11]);
+    flash_fwd_wg_kernel<D><<<(unsigned)(BH * q_tiles), C::THREADS, C::SMEM,
+                             (cudaStream_t)a.stream>>>(
+        mq, mk, mv, static_cast<bf16*>(a.o), a.lse, (int)BH, a.H, group,
+        (int)chunk, a.Lq, a.Lkv, a.causal, a.window, a.q_offset,
+        a.scale * LOG2E, st[9], st[10], st[11]);
     return (int)cudaGetLastError();
 }
 
@@ -1813,7 +2068,7 @@ int launch_wg_bwd(const BwdArgs& a) {
         static int run(const ARGS& a) { return FN<D>(a); }                     \
     };
 FLASH_LAUNCH(SimtLaunch, launch_simt, FwdArgs)
-FLASH_LAUNCH(MmaLaunch, launch_mma, FwdArgs)
+FLASH_LAUNCH(WgFwdLaunch, launch_wg_fwd, FwdArgs)
 FLASH_LAUNCH(SimtBwdLaunch, launch_simt_bwd, BwdArgs)
 FLASH_LAUNCH(WgBwdLaunch, launch_wg_bwd, BwdArgs)
 #undef FLASH_LAUNCH
@@ -1862,7 +2117,7 @@ int by_head_dim(int D, const Args& a) {
     }
 
 FLASH_ENTRY(flash_attention_f32, SimtLaunch)
-FLASH_ENTRY(flash_attention_bf16, MmaLaunch)
+FLASH_ENTRY(flash_attention_bf16, WgFwdLaunch)
 
 // The backward: q, k, v, o, lse and dO as the forward's (dO with strides of
 // its own), dq (B, H, Lq, D), dk and dv (B, Hkv, Lkv, D) contiguous outputs,

@@ -3,9 +3,10 @@
 Counterpart of the reference's ``kernels/flash_attention/ops.py``, whose
 TPU kernel is ``flash_attention_pallas`` (``src/repro/kernels/
 flash_attention/kernel.py``).  The source (``csrc/flash_attention.cu``)
-holds two kernels: bf16 runs FlashAttention-2 on the tensor cores
-(``mma.sync`` bf16 products fed by ``ldmatrix`` from a ``cp.async`` ring of
-K/V tiles), float32 the first CUDA-core design, whose products keep full
+holds two forward kernels: bf16 runs FlashAttention-3's shape on Hopper's
+warpgroup products (``wgmma``, fed by TMA loads of Q, K and V tiles through
+an ``mbarrier`` ring, a producer warpgroup beside two consumer
+warpgroups), float32 the first CUDA-core design, whose products keep full
 float32 accuracy.  Both loop only over the keys the causal mask and the
 window leave.  Its source note gives the bound on the card and the designs.
 
@@ -52,7 +53,8 @@ from .ref import attention_ref, flash_attention_bwd_ref, \
     flash_attention_lse_ref
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "head_dims", "instance_dim", "run_padded", "unmasked_pairs"]
+           "head_dims", "instance_dim", "run_padded", "tma_aligned",
+           "unmasked_pairs"]
 
 _KERNEL_DTYPES = {torch.float32: "flash_attention_f32",
                   torch.bfloat16: "flash_attention_bf16"}
@@ -66,10 +68,15 @@ def _strides(t: torch.Tensor) -> list[int]:
     return [st if n > 1 else 0 for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
-def _rows_16b(t: torch.Tensor) -> bool:
-    """Every row starts on 16 bytes (8 bf16): what the bf16 kernel's
-    ``cp.async`` copies need."""
-    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in _strides(t))
+def tma_aligned(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernels read the (B, heads, L, d) operand ``t`` as
+    it lies: last dim contiguous, first element on 16 bytes, and every
+    batch, head and position stride a multiple of 8 elements (16 bytes) —
+    what the forward's TMA tensor maps and the backward's ``cp.async``
+    copies address.  The wrapper copies an operand that fails it once; the
+    C entries refuse what this refuses."""
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for st in _strides(t))
 
 
 def head_dims() -> tuple[int, ...]:
@@ -128,11 +135,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keeps keys with ``qpos - kpos < window`` (``None`` or 0: no window).
     On the card q, k and v may be any strided views whose last dim is
     contiguous (the model's ``(B, L, H, d)`` → ``(B, H, L, d)`` views go in
-    as they are); the output takes q's layout.  In bf16 each row must also
-    start on 16 bytes (pointer 16-byte aligned, strides multiples of 8
-    elements); an operand whose rows do not is copied once.  A head dim
-    without an instance is padded (:func:`run_padded`), and the output is
-    then a view of the padded one's first d columns.
+    as they are); the output takes q's layout.  In bf16 an operand must
+    also pass :func:`tma_aligned`; one that does not is copied once.  A
+    head dim without an instance is padded (:func:`run_padded`), and the
+    output is then a view of the padded one's first d columns.
     """
     window = int(window or 0)
     _check(q, k, v, window, q_offset)
@@ -331,14 +337,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _rows(*ts):
     """The operands as the kernels read them: rows along a contiguous last
-    dim, in bf16 each starting on 16 bytes (the ``cp.async`` copies); any
-    other layout is copied once here."""
-    ts = tuple(t if t.stride(3) == 1 else t.contiguous() for t in ts)
+    dim, in bf16 as :func:`tma_aligned` asks; any other layout is copied
+    once here."""
     if ts[0].dtype == torch.bfloat16:
-        ts = tuple(t if _rows_16b(t) else
-                   t.clone(memory_format=torch.contiguous_format)
-                   for t in ts)
-    return ts
+        return tuple(t if tma_aligned(t) else
+                     t.clone(memory_format=torch.contiguous_format)
+                     for t in ts)
+    return tuple(t if t.stride(3) == 1 else t.contiguous() for t in ts)
 
 
 def _launch_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool,

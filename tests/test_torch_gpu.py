@@ -56,9 +56,10 @@ MATMUL_EDGES = [(2, 1, 1, 1), (1, 3, 5, 7), (2, 64, 4, 64), (3, 129, 4, 131),
 # 128 x 256 tile, Z off the 64-deep k-tile, one element
 BF16_TMA_EDGES = [(2, 130, 72, 264), (1, 257, 8, 136), (3, 64, 4104, 2056),
                   (1, 1, 8, 8)]
-# bf16 flash tile edges (Lq, Lkv): off the 128 / 64 query tiles and the 64
-# (32 at d = 256) key tiles
-FLASH_EDGES = [(1, 1), (7, 130), (65, 64), (129, 129), (200, 333), (300, 97)]
+# bf16 flash tile edges (Lq, Lkv): off the 128-row query tiles and the
+# 128-key (64 at d = 256) key tiles, Lkv < Lq too
+FLASH_EDGES = [(1, 1), (7, 130), (65, 64), (129, 129), (200, 333), (300, 97),
+               (257, 193)]
 FLASH_DIMS = [16, 18, 32, 64, 112, 128, 256]
 # (Bt, L, Dm, S): the reference's sweep and odd state sizes, then the
 # kernel's edges: L = 1, L a multiple of its 32-step chunk (the unrolled
@@ -423,6 +424,85 @@ def test_flash_bf16_copies_unaligned_views(cuda):
     assert flash_attention.launches == before + 1
     _assert_flash_bf16(got, attention_ref(q.contiguous(), k.contiguous(),
                                           v.contiguous(), window=16))
+
+
+# the served models' attention heads (and kimi-k2's, whose head dim 112
+# runs zero-padded in the <128> instance)
+FLASH_SERVED_ARCHS = ["hymba-1.5b", "qwen2-moe-a2.7b", "musicgen-large",
+                      "gemma-2b", "qwen2.5-3b", "minicpm-2b",
+                      "llava-next-mistral-7b", "qwen1.5-32b",
+                      "kimi-k2-1t-a32b"]
+
+
+def _flash_kernel_names(fn, tries: int = 3) -> list:
+    """The device kernels ``fn`` launches whose names hold "flash", as
+    ``torch.profiler`` records them.  A session that records no flash
+    kernel at all is run again, up to ``tries`` times: after several
+    sessions in one process the profiler can drop a session's device
+    events (seen once in nine, on an H100); a kernel it does record is
+    never retried away."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(e.device_type).endswith("CUDA") and "flash" in e.name]
+        if names:
+            break
+    return names
+
+
+@pytest.mark.parametrize("arch", FLASH_SERVED_ARCHS)
+def test_flash_bf16_served_heads_run_the_wgmma_kernel(cuda, arch):
+    """At each served model's heads and head dim (a short prompt; hymba's
+    window too) the bf16 forward launches the warpgroup-product kernel fed
+    by TMA, ``flash_fwd_wg_kernel``, once and no other flash kernel (the
+    mma.sync design is gone), and agrees with the plain version."""
+    cfg = get_arch(arch)
+    H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = _flash_case(cuda, 1, H, Hkv, 300, 300, d, 60)
+    window = cfg.sliding_window
+    got = []
+    names = _flash_kernel_names(lambda: got.append(
+        flash_attention(q, k, v, window=window)))
+    assert len(names) == 1 and "flash_fwd_wg_kernel" in names[0], names
+    _assert_flash_bf16(got[-1], attention_ref(q, k, v,
+                                              window=window or None))
+
+
+@pytest.mark.parametrize("d", FLASH_DIMS)
+@pytest.mark.parametrize("Lq,Lkv,off,window", [
+    (129, 129, 0, 0), (300, 97, 0, 0), (7, 130, 123, 0), (200, 333, 133, 37),
+    (230, 300, 250, 64)])
+def test_flash_bf16_lse_matches_plain(cuda, Lq, Lkv, off, window, d):
+    """The forward's log-sum-exp (what the backward reads) against
+    ``flash_attention_lse_ref`` off the tiles, with q_offset > 0 and a
+    window starting inside a key tile (rows past Lkv + window see no key:
+    their LSE is 0 and their output 0), in every instance dim and two
+    padded ones."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_lse_ref
+    q, k, v = _flash_case(cuda, 2, 10, 2, Lq, Lkv, d, 62)
+    o, lse = flash_attention_fwd(q, k, v, window=window, q_offset=off)
+    o_r, lse_r = flash_attention_lse_ref(q, k, v, window=window or None,
+                                         q_offset=off)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 10, Lq)
+    _assert_flash_bf16(o, o_r)
+    _assert_close(lse, lse_r, 1e-2, 1e-2)
+
+
+def test_flash_bf16_reads_expanded_kv(cuda):
+    """One KV head broadcast over the heads (head stride 0, as
+    ``expand`` makes it) passes ``tma_aligned`` and is read in place."""
+    from repro_torch.kernels.flash_attention.ops import tma_aligned
+    q, k, v = _flash_case(cuda, 2, 4, 1, 150, 150, 64, 64)
+    ke, ve = k.expand(2, 4, 150, 64), v.expand(2, 4, 150, 64)
+    assert ke.stride(1) == 0 and tma_aligned(ke)
+    _assert_flash_bf16(flash_attention(q, ke, ve, window=40),
+                       attention_ref(q, k, v, window=40))
 
 
 @pytest.mark.parametrize("L", [2048])

@@ -505,6 +505,68 @@ def test_flash_instance_dims():
         instance_dim(300, BUILT_HEAD_DIMS)
 
 
+def _flash_view(case: str) -> torch.Tensor:
+    """A bf16 (B, heads, L, d) operand as the models (or a caller) pass it,
+    a view of a buffer of N(0, 1) values."""
+    B, L, H, d = 2, 40, 4, 64
+    flat = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        B * L * (H * d + 8) + 8).astype(np.float32)).to(torch.bfloat16)
+    if case == "contiguous":
+        return flat[:B * H * L * d].view(B, H, L, d)
+    if case == "model_transpose":          # (B, L, H, d) -> (B, H, L, d)
+        return flat[:B * L * H * d].view(B, L, H, d).transpose(1, 2)
+    if case == "query_chunk":              # a mesh rank's rows of positions
+        return flat[:B * L * H * d].view(B, L, H, d).transpose(1, 2)[
+            :, :, 8:24]
+    if case == "kv_heads_slice":           # a rank's KV heads of a group
+        return flat[:B * L * H * d].view(B, L, H, d).transpose(1, 2)[:, 1:3]
+    if case == "one_row":                  # Lq = 1: its stride is not read
+        return flat.as_strided((B, H, 1, d), (H * d + 8, d, 3, 1))
+    if case == "kv_expanded":              # one KV head broadcast: stride 0
+        return flat[:B * L * d].view(B, 1, L, d).expand(B, H, L, d)
+    if case == "base_2_bytes_in":
+        return flat[1:1 + B * H * L * d].view(B, H, L, d)
+    if case == "base_8_bytes_in":
+        return flat[4:4 + B * H * L * d].view(B, H, L, d)
+    if case == "base_16_bytes_in":
+        return flat[8:8 + B * H * L * d].view(B, H, L, d)
+    if case == "position_stride_odd":      # rows H*d + 1 apart
+        return flat[:B * L * (H * d + 1)].view(B, L, H * d + 1)[
+            ..., :H * d].view(B, L, H, d).transpose(1, 2)
+    if case == "position_stride_pad_8":
+        return flat[:B * L * (H * d + 8)].view(B, L, H * d + 8)[
+            ..., :H * d].view(B, L, H, d).transpose(1, 2)
+    if case == "head_dim_18":              # padded before the kernel
+        return flat[:B * H * L * 18].view(B, H, L, 18)
+    if case == "last_dim_strided":
+        return flat[:B * H * L * d].view(B, H, d, L).transpose(2, 3)
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case,tma", [
+    ("contiguous", True), ("model_transpose", True), ("query_chunk", True),
+    ("kv_heads_slice", True), ("one_row", True), ("kv_expanded", True),
+    ("base_2_bytes_in", False), ("base_8_bytes_in", False),
+    ("base_16_bytes_in", True), ("position_stride_odd", False),
+    ("position_stride_pad_8", True), ("head_dim_18", False),
+    ("last_dim_strided", False)])
+def test_flash_tma_aligned_routes_the_views_models_pass(case, tma):
+    """Which bf16 operands the kernels read as they lie (the forward's TMA
+    tensor maps, the backward's 16-byte copies): a contiguous last dim, the
+    first element on 16 bytes, batch, head and position strides multiples
+    of 8 elements (a dim of extent 1 is never stepped); the wrapper copies
+    the rest once.  The models' (B, L, H, d) -> (B, H, L, d) views and the
+    mesh's slices of them need no copy.  On the CPU the plain version runs
+    for either, with the same result as on a contiguous copy."""
+    from repro_torch.kernels.flash_attention.ops import tma_aligned
+    t = _flash_view(case)
+    assert tma_aligned(t) is tma, case
+    q = _flash_view("contiguous") if case == "kv_expanded" else t
+    torch.testing.assert_close(flash_attention(q, t, t, window=5),
+                               flash_attention(q.contiguous(), t.contiguous(),
+                                               t.contiguous(), window=5))
+
+
 # ----------------------------------------------------------------- ssm scan
 
 SCAN_SHAPES = [(1, 32, 16, 4), (2, 48, 24, 16), (2, 100, 40, 8),
@@ -574,6 +636,25 @@ def test_scan_phase_clock_marks_fit_the_kernel_source():
     for p in range(len(tool.PHASES)):
         assert f"SCAN_MARK({p})" in src
     assert "scan_phase_read" in src
+
+
+def test_flash_phase_clock_marks_fit_the_kernel_source():
+    """``tools/flash_phase_clocks.py`` edits a copy of
+    ``csrc/flash_attention.cu`` at fixed anchors in the bf16 forward: each
+    must still appear once in the source, every phase gets its mark, and
+    the cycles are saved once, at the kernel's end."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "flash_phase_clocks.py"
+    spec = importlib.util.spec_from_file_location("flash_phase_clocks", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = tool.instrumented_source()
+    for p in range(len(tool.PHASES)):
+        assert src.count(f"FLASH_MARK({p})") == 1
+    assert src.count("flash_phase_cycles[blockIdx.x][wg][p]") == 1
+    assert "flash_phase_read" in src
 
 
 @pytest.mark.parametrize("bad", ["A", "B", "D", "ndim"])
