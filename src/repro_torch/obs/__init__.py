@@ -22,6 +22,13 @@ observable on the live runtime instead of reconstructable from print lines:
   error-budget burn-rate alerting over the `serve.slo_hit/miss` stream.
 * :class:`MetricsExporter` — background-thread HTTP endpoint serving
   Prometheus text and a JSON scrape of snapshot + series + burn state.
+* :func:`span` — spans at the serving path's and the training step's
+  layer boundaries, host ranges on the profiler's clock and, where read,
+  stream intervals on the device, recorded only while a
+  ``torch.profiler`` runs (:mod:`.spans`); read back with
+  :func:`span_records`, emptied with :func:`clear_spans`.  They load
+  torch on first use, so that a numpy-compute cluster worker, which
+  imports this package, starts without it.
 """
 from .exporter import MetricsExporter, prometheus_text
 from .flight import NULL_FLIGHT, FlightRecorder
@@ -34,4 +41,15 @@ __all__ = ["MetricsRegistry", "Counter", "Gauge", "Histogram",
            "NULL_REGISTRY", "Tracer", "NULL_TRACER", "FlightRecorder",
            "NULL_FLIGHT", "TimeSeriesSampler", "NULL_SAMPLER",
            "BurnRateTracker", "BurnAlert", "NULL_BURN", "MetricsExporter",
-           "prometheus_text"]
+           "prometheus_text", "span", "span_records", "clear_spans"]
+
+_SPANS = ("span", "span_records", "clear_spans")
+
+
+def __getattr__(name):
+    if name in _SPANS:
+        from . import spans
+        for n in _SPANS:
+            globals()[n] = getattr(spans, n)
+        return globals()[name]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

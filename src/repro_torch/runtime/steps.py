@@ -27,6 +27,7 @@ import functools
 
 import torch
 
+from .. import obs
 from ..compat import DTensor
 from ..configs import check_family
 from ..device import resolve_device
@@ -93,44 +94,53 @@ def make_train_step(cfg, schedule=None, *, max_grad_norm: float = 1.0,
     ``vision_embeds`` (B, n_vis, d), for the coded FFN ``coded_weights``
     (N,).
     ``metrics``: ``loss``, ``grad_norm``, ``lr`` and ``step`` (tensors on
-    the device; reading them waits for the step)."""
+    the device; reading them waits for the step).
+
+    Under a profiler the step is the ``train.step`` span over
+    ``train.forward``, ``train.backward``, ``train.clip``,
+    ``train.optimizer`` and ``train.apply`` (:func:`repro_torch.obs.span`)."""
     check_family(cfg)
     dev = resolve_device(device)
     schedule = schedule or make_schedule(cfg)
 
     def train_step(params, opt_state, batch, step):
-        inputs = {"tokens": _on(dev, params, batch["tokens"])}
-        for key in ("vision_embeds", "coded_weights"):
-            if batch.get(key) is not None and isinstance(batch[key],
-                                                         DTensor):
-                inputs[key] = batch[key].to(torch.float32)
-            elif batch.get(key) is not None:
-                inputs[key] = _sharded(params, {key: torch.as_tensor(
-                    batch[key], dtype=torch.float32,
-                    device=params.embed.device)})[key]
-        named = dict(params.named_parameters())
-        decay = decayed_names(named, cfg)
-        try:
-            for p in named.values():
-                p.requires_grad_(True)
-            with torch.enable_grad():
-                loss = lm.lm_loss(params, inputs, cfg)
-                grads = torch.autograd.grad(loss, list(named.values()),
-                                            materialize_grads=True)
-        finally:
-            for p in named.values():
-                p.requires_grad_(False)
-        grads, gnorm = clip_by_global_norm(dict(zip(named, grads)),
-                                           max_grad_norm)
-        lr = schedule(step + 1)            # step 0 would sit at warmup lr=0
-        new, opt_state = adamw_update(grads, opt_state, named, lr=lr,
-                                     decay=decay)
-        with torch.no_grad():
-            for k, p in named.items():
-                p.copy_(new[k])
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr,
-                   "step": opt_state.step}
-        return params, opt_state, metrics
+        with obs.span("train.step"):
+            inputs = {"tokens": _on(dev, params, batch["tokens"])}
+            for key in ("vision_embeds", "coded_weights"):
+                if batch.get(key) is not None and isinstance(batch[key],
+                                                             DTensor):
+                    inputs[key] = batch[key].to(torch.float32)
+                elif batch.get(key) is not None:
+                    inputs[key] = _sharded(params, {key: torch.as_tensor(
+                        batch[key], dtype=torch.float32,
+                        device=params.embed.device)})[key]
+            named = dict(params.named_parameters())
+            decay = decayed_names(named, cfg)
+            try:
+                for p in named.values():
+                    p.requires_grad_(True)
+                with torch.enable_grad():
+                    with obs.span("train.forward", device=dev):
+                        loss = lm.lm_loss(params, inputs, cfg)
+                    with obs.span("train.backward", device=dev):
+                        grads = torch.autograd.grad(loss, list(named.values()),
+                                                    materialize_grads=True)
+            finally:
+                for p in named.values():
+                    p.requires_grad_(False)
+            with obs.span("train.clip", device=dev):
+                grads, gnorm = clip_by_global_norm(dict(zip(named, grads)),
+                                                   max_grad_norm)
+            lr = schedule(step + 1)        # step 0 would sit at warmup lr=0
+            with obs.span("train.optimizer", device=dev):
+                new, opt_state = adamw_update(grads, opt_state, named, lr=lr,
+                                              decay=decay)
+            with obs.span("train.apply", device=dev), torch.no_grad():
+                for k, p in named.items():
+                    p.copy_(new[k])
+            metrics = {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr,
+                       "step": opt_state.step}
+            return params, opt_state, metrics
 
     return train_step
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..cluster.events import ShardEvent
 from ..core.codes.base import CDCCode
 from ..core.partition import split_contraction
@@ -159,8 +160,9 @@ class ExecutionBackend:
         otherwise come from the same launch over ``[G.real; G.imag]``.
         """
         G_A, G_B = cls._generators(code, n_shards)
-        X_A = _stack_f32(As)
-        X_B = _stack_f32(Bs)
+        with obs.span("sac.cast", device=As[0].device):
+            X_A = _stack_f32(As)
+            X_B = _stack_f32(Bs)
         A_blocks, B_blocks = split_contraction(X_A, X_B, code.K)
         cplx = np.iscomplexobj(G_A) or np.iscomplexobj(G_B)
         out = []
@@ -185,8 +187,9 @@ def _stack_f32(mats) -> torch.Tensor:
 
 
 def _gen_tensor(G: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(np.ascontiguousarray(G), dtype=torch.float32,
-                           device=device)
+    with obs.span("sync.generator"):          # a pageable upload: blocks
+        return torch.as_tensor(np.ascontiguousarray(G), dtype=torch.float32,
+                               device=device)
 
 
 class SimulatedBackend(ExecutionBackend):
@@ -311,12 +314,17 @@ class TorchDeviceBackend(ExecutionBackend):
         def fold(t):
             return t.reshape((B * N,) + tuple(t.shape[2:])).to(self.dtype)
 
+        dev = self.device
+        with obs.span("sac.cast", device=dev):
+            ops = [fold(t) for t in (ea, ea_im, eb, eb_im) if t is not None]
         if ea_im is None:
-            P = worker_products(fold(ea), fold(eb))
+            with obs.span("sac.products", device=dev):
+                P = worker_products(*ops)
         else:
-            re, im = worker_products_complex(fold(ea), fold(ea_im), fold(eb),
-                                             fold(eb_im))
-            P = torch.complex(re.float(), im.float())
+            with obs.span("sac.products", device=dev):
+                re, im = worker_products_complex(*ops)
+            with obs.span("sac.cast", device=dev):
+                P = torch.complex(re.float(), im.float())
         return P.reshape((B, N) + tuple(P.shape[1:]))
 
     def draw_latencies(self, rng: np.random.Generator,

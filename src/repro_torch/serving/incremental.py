@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.codes.base import CDCCode, DecodeInfo
 from ..names import unknown_name
 from .cache import DecodeWeightCache
@@ -37,7 +38,8 @@ __all__ = ["IncrementalDecoder", "RecomputeDecoder", "make_decoder",
 def recombine(w: np.ndarray, stack: torch.Tensor) -> torch.Tensor:
     """``Σ_i w_i · stack[i]`` on the stack's device: host weights ``(p,)``
     against a ``(p, Nx, Ny)`` tensor, in their promoted dtype."""
-    wt = torch.as_tensor(np.asarray(w), device=stack.device)
+    with obs.span("sync.recombine_weights"):  # a pageable upload: blocks
+        wt = torch.as_tensor(np.asarray(w), device=stack.device)
     dt = torch.promote_types(wt.dtype, stack.dtype)
     return torch.einsum("m,mij->ij", wt.to(dt), stack.to(dt))
 
@@ -151,30 +153,32 @@ class IncrementalDecoder:
 
     def _resolve(self, m: int):
         """Solve + recombine at a layer boundary (cache-aware)."""
-        code = self.code
-        completed = self._order[:m]
-        p = code.decode_support(m)
-        key = None
-        if self.cache is not None:
-            key = DecodeWeightCache.key(code, completed[:p], p,
-                                        self.beta_mode)
-            hit = self.cache.get(key)
-            if hit is not None:
-                w_full, info = hit
-                self.stats["cache_hit"] += 1
-                pre = recombine(w_full[completed[:p]], self._buf[:p])
-                return pre, info, w_full
-        res = code.estimate_weights(completed, m)
-        if res is None:                              # defensive; guarded above
-            raise ValueError(f"no estimate at m={m} for {code.name}")
-        w, info = res
-        self.stats["resolve"] += 1
-        pre = recombine(w, self._buf[:len(w)])
-        w_full = np.zeros(code.N, dtype=np.result_type(w.dtype, np.float64))
-        w_full[completed[:len(w)]] = w
-        if key is not None:
-            self.cache.put(key, (w_full, info))
-        return pre, info, w_full
+        with obs.span("sac.decode.resolve"):
+            code = self.code
+            completed = self._order[:m]
+            p = code.decode_support(m)
+            key = None
+            if self.cache is not None:
+                key = DecodeWeightCache.key(code, completed[:p], p,
+                                            self.beta_mode)
+                hit = self.cache.get(key)
+                if hit is not None:
+                    w_full, info = hit
+                    self.stats["cache_hit"] += 1
+                    pre = recombine(w_full[completed[:p]], self._buf[:p])
+                    return pre, info, w_full
+            res = code.estimate_weights(completed, m)
+            if res is None:                      # defensive; guarded above
+                raise ValueError(f"no estimate at m={m} for {code.name}")
+            w, info = res
+            self.stats["resolve"] += 1
+            pre = recombine(w, self._buf[:len(w)])
+            w_full = np.zeros(code.N,
+                              dtype=np.result_type(w.dtype, np.float64))
+            w_full[completed[:len(w)]] = w
+            if key is not None:
+                self.cache.put(key, (w_full, info))
+            return pre, info, w_full
 
     def weight_vector(self) -> np.ndarray | None:
         """β-folded scattered ``(N,)`` host decode weights at this state."""

@@ -55,6 +55,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.codes.base import CDCCode
 from ..obs import NULL_BURN, NULL_FLIGHT, NULL_REGISTRY, NULL_SAMPLER, \
     NULL_TRACER
@@ -206,6 +207,12 @@ class MasterScheduler:
         self._g_queue = self.metrics.gauge("serve.queue_depth")
         self._g_inflight = self.metrics.gauge("serve.inflight_shards")
         self._g_err = self.metrics.gauge("serve.last_rel_err")
+        # serve.decode_tick_seconds (each tick's estimates) and
+        # serve.decode_push_seconds (each completion's pushes) are host
+        # clocks: on a device backend they time the host's enqueue of the
+        # decode, not the device; the decode's stream interval on the
+        # device is the ``sac.decode`` span's (``obs.span``), recorded
+        # under a profiler
         self._h_tick = self.metrics.histogram("serve.decode_tick_seconds")
         self._h_ttfa = self.metrics.histogram("serve.tta_first_seconds")
         self._h_tta = self.metrics.histogram("serve.tta_exact_seconds")
@@ -431,7 +438,8 @@ class MasterScheduler:
             self._g_queue.set(len(self._queue))
             cls = self._class_of(batch[0]) \
                 if (self.policy is not None and per_class) else None
-            results.extend(self._serve_batch(batch, cls))
+            with obs.span("sac.batch"):
+                results.extend(self._serve_batch(batch, cls))
             self._served += len(batch)
             if self.policy is not None:
                 new_code = self.policy.maybe_retune(cls) if per_class \
@@ -521,7 +529,8 @@ class MasterScheduler:
             cls = self._class_of(batch[0]) \
                 if (self.policy is not None and per_class) else None
             ctx = _OpenContext(feed, t_now, realtime)
-            results.extend(self._serve_batch(batch, cls, open_ctx=ctx))
+            with obs.span("sac.batch"):
+                results.extend(self._serve_batch(batch, cls, open_ctx=ctx))
             self._served += len(batch)
             t_now = ctx.t_release
             if self.policy is not None:
@@ -687,6 +696,9 @@ class MasterScheduler:
         arrivals after (completion-before-arrival), and — when any member
         carries an accuracy SLO — the batch releases early once every
         member hit its target, cancelling the remaining shard work.
+
+        Under a profiler its callers hold it in a ``sac.batch`` span, and
+        its event loop is the ``sac.decode`` span (:func:`obs.span`).
         """
         code, cfg = self._code_for(cls), self.config
         Nf = self._fleet_for(code)
@@ -741,130 +753,137 @@ class MasterScheduler:
         timed_out = False                  # this batch abandoned shards
         m, di = 0, 0
         try:
-            while di < len(deadlines) or dispatch.outstanding:
-                if not dispatch.outstanding:
-                    # every shard resolved: the remaining ticks carry the
-                    # final m whatever the clock says — flush them
-                    for dl in deadlines[di:]:
-                        self._emit(batch, decoders, refs, results, dl, m, R,
-                                   "deadline", bid)
-                    di = len(deadlines)
-                    break
-                timeout = None
-                if di < len(deadlines):
-                    timeout = deadlines[di] - dispatch.elapsed()
-                    if timeout <= 0:
+            # the decode phase: on the device, every push and estimate of
+            # the batch, after its products
+            with obs.span("sac.decode", device=self.device):
+                while di < len(deadlines) or dispatch.outstanding:
+                    if not dispatch.outstanding:
+                        # every shard resolved: the remaining ticks carry the
+                        # final m whatever the clock says — flush them
+                        for dl in deadlines[di:]:
+                            self._emit(batch, decoders, refs, results, dl,
+                                       m, R, "deadline", bid)
+                        di = len(deadlines)
+                        break
+                    timeout = None
+                    if di < len(deadlines):
+                        timeout = deadlines[di] - dispatch.elapsed()
+                        if timeout <= 0:
+                            self._emit(batch, decoders, refs, results,
+                                       deadlines[di], m, R, "deadline", bid)
+                            di += 1
+                            continue
+                    if poll is not None:
+                        # cap the wait so hedge triggers are not delayed until
+                        # the next deadline tick
+                        timeout = poll if timeout is None \
+                            else min(timeout, poll)
+                    if open_ctx is not None and open_ctx.realtime \
+                            and open_ctx.feed.more:
+                        # live open loop: wake at the next arrival so admission
+                        # (and shed) decisions land near their true instants
+                        wait = max(open_ctx.feed.next_time - t_start
+                                   - dispatch.elapsed(), 0.0) + 1e-3
+                        timeout = wait if timeout is None \
+                            else min(timeout, wait)
+                    ev = dispatch.next_event(timeout=timeout)
+                    if ev is None:
+                        # deadline reached or spurious wake — a natural point
+                        # to reconsider hedging the still-pending shards
+                        self.sampler.tick(t_base + dispatch.elapsed())
+                        if open_ctx is not None:
+                            open_ctx.feed.admit_until(
+                                t_start + dispatch.elapsed())
+                        if poll is not None:
+                            self._maybe_speculate(dispatch, code, m,
+                                                  shard_times, deadlines)
+                        continue
+                    if open_ctx is not None:
+                        # arrivals strictly earlier than this event are
+                        # admitted before it is ingested (ties wait:
+                        # completion first)
+                        open_ctx.feed.admit_until(t_start + ev.t, strict=True)
+                    # stream-contract tie rule: a tick fires after any
+                    # completion sharing its timestamp, so strictly-earlier
+                    # ticks flush before this event is ingested
+                    while di < len(deadlines) and deadlines[di] < ev.t:
                         self._emit(batch, decoders, refs, results,
                                    deadlines[di], m, R, "deadline", bid)
                         di += 1
-                        continue
-                if poll is not None:
-                    # cap the wait so hedge triggers are not delayed until
-                    # the next deadline tick
-                    timeout = poll if timeout is None else min(timeout, poll)
-                if open_ctx is not None and open_ctx.realtime \
-                        and open_ctx.feed.more:
-                    # live open loop: wake at the next arrival so admission
-                    # (and shed) decisions land near their true instants
-                    wait = max(open_ctx.feed.next_time - t_start
-                               - dispatch.elapsed(), 0.0) + 1e-3
-                    timeout = wait if timeout is None \
-                        else min(timeout, wait)
-                ev = dispatch.next_event(timeout=timeout)
-                if ev is None:
-                    # deadline reached or spurious wake — a natural point to
-                    # reconsider hedging the still-pending shards
-                    self.sampler.tick(t_base + dispatch.elapsed())
+                    if ev.kind == "done":
+                        if ev.shard in shard_times:
+                            continue           # defensive: dispatches dedup
+                        m += 1
+                        spec = getattr(ev, "speculative", False)
+                        self.tracer.done(
+                            bid, ev.shard, ev.worker, ev.t,
+                            start=disp_t.get(ev.shard, 0.0) if spec else 0.0,
+                            timings=getattr(ev, "timings", None),
+                            speculative=spec)
+                        if self._m_on:
+                            d0 = time.perf_counter()
+                            for i, dec in enumerate(decoders):
+                                dec.push(ev.shard, ev.products[i])
+                            d_dur = time.perf_counter() - d0
+                            self._h_decode.observe(d_dur)
+                            self.tracer.decode_apply(bid, ev.shard, ev.t,
+                                                     dur=d_dur)
+                        else:
+                            for i, dec in enumerate(decoders):
+                                dec.push(ev.shard, ev.products[i])
+                            self.tracer.decode_apply(bid, ev.shard, ev.t)
+                        shard_times[ev.shard] = ev.t
+                        self.flight.record("done", batch=bid, shard=ev.shard,
+                                           worker=ev.worker, t=ev.t, m=m)
+                        if m == code.first_threshold:
+                            self.tracer.milestone(bid, "first-threshold", ev.t,
+                                                  m=m)
+                        if m == R:
+                            self.tracer.milestone(bid, "exact", ev.t, m=m)
+                        if cfg.stream:
+                            self._emit(batch, decoders, refs, results, ev.t, m,
+                                       R, "event", bid)
+                    elif ev.kind == "redispatch":  # speculation bookkeeping
+                        self.speculations.append((batch_no, ev.shard,
+                                                  ev.reason))
+                        disp_t[ev.shard] = ev.t
+                        self.tracer.redispatch(bid, ev.shard, ev.worker, ev.t,
+                                               ev.reason)
+                        self.flight.record("redispatch", batch=bid,
+                                           shard=ev.shard, worker=ev.worker,
+                                           t=ev.t, reason=ev.reason)
+                    else:                      # lost shard (crash/timeout)
+                        self.losses.append((batch_no, ev.shard, ev.reason))
+                        timed_out = timed_out or ev.reason == "timeout"
+                        self.tracer.lost(bid, ev.shard, ev.worker, ev.t,
+                                         ev.reason)
+                        self.flight.record("lost", batch=bid, shard=ev.shard,
+                                           worker=ev.worker, t=ev.t,
+                                           reason=ev.reason)
+                    self._g_inflight.set(dispatch.outstanding)
+                    self.sampler.tick(t_base + ev.t)
                     if open_ctx is not None:
-                        open_ctx.feed.admit_until(
-                            t_start + dispatch.elapsed())
+                        t_glob = t_start + ev.t
+                        if slo_active and ev.kind == "done":
+                            self._open_track(batch, decoders, refs, results,
+                                             m, R, t_glob)
+                        settled = slo_active and self._open_settled(
+                            batch, results, m, R)
+                        if not settled and dispatch.outstanding:
+                            # tied arrivals admit after the completion they
+                            # share a timestamp with
+                            # (completion-before-arrival)
+                            open_ctx.feed.admit_until(t_glob)
+                        if settled:
+                            # every member hit its accuracy SLO: release the
+                            # fleet now, cancelling the outstanding shard work.
+                            # Ties at this instant stay with the feed — the
+                            # run_open loop admits them after the dispatch this
+                            # release triggers (which may free a queue slot)
+                            break
                     if poll is not None:
                         self._maybe_speculate(dispatch, code, m, shard_times,
                                               deadlines)
-                    continue
-                if open_ctx is not None:
-                    # arrivals strictly earlier than this event are admitted
-                    # before it is ingested (ties wait: completion first)
-                    open_ctx.feed.admit_until(t_start + ev.t, strict=True)
-                # stream-contract tie rule: a tick fires after any
-                # completion sharing its timestamp, so strictly-earlier
-                # ticks flush before this event is ingested
-                while di < len(deadlines) and deadlines[di] < ev.t:
-                    self._emit(batch, decoders, refs, results, deadlines[di],
-                               m, R, "deadline", bid)
-                    di += 1
-                if ev.kind == "done":
-                    if ev.shard in shard_times:
-                        continue           # defensive: dispatches dedup
-                    m += 1
-                    spec = getattr(ev, "speculative", False)
-                    self.tracer.done(
-                        bid, ev.shard, ev.worker, ev.t,
-                        start=disp_t.get(ev.shard, 0.0) if spec else 0.0,
-                        timings=getattr(ev, "timings", None),
-                        speculative=spec)
-                    if self._m_on:
-                        d0 = time.perf_counter()
-                        for i, dec in enumerate(decoders):
-                            dec.push(ev.shard, ev.products[i])
-                        d_dur = time.perf_counter() - d0
-                        self._h_decode.observe(d_dur)
-                        self.tracer.decode_apply(bid, ev.shard, ev.t,
-                                                 dur=d_dur)
-                    else:
-                        for i, dec in enumerate(decoders):
-                            dec.push(ev.shard, ev.products[i])
-                        self.tracer.decode_apply(bid, ev.shard, ev.t)
-                    shard_times[ev.shard] = ev.t
-                    self.flight.record("done", batch=bid, shard=ev.shard,
-                                       worker=ev.worker, t=ev.t, m=m)
-                    if m == code.first_threshold:
-                        self.tracer.milestone(bid, "first-threshold", ev.t,
-                                              m=m)
-                    if m == R:
-                        self.tracer.milestone(bid, "exact", ev.t, m=m)
-                    if cfg.stream:
-                        self._emit(batch, decoders, refs, results, ev.t, m,
-                                   R, "event", bid)
-                elif ev.kind == "redispatch":      # speculation bookkeeping
-                    self.speculations.append((batch_no, ev.shard, ev.reason))
-                    disp_t[ev.shard] = ev.t
-                    self.tracer.redispatch(bid, ev.shard, ev.worker, ev.t,
-                                           ev.reason)
-                    self.flight.record("redispatch", batch=bid,
-                                       shard=ev.shard, worker=ev.worker,
-                                       t=ev.t, reason=ev.reason)
-                else:                      # lost shard (crash/timeout)
-                    self.losses.append((batch_no, ev.shard, ev.reason))
-                    timed_out = timed_out or ev.reason == "timeout"
-                    self.tracer.lost(bid, ev.shard, ev.worker, ev.t,
-                                     ev.reason)
-                    self.flight.record("lost", batch=bid, shard=ev.shard,
-                                       worker=ev.worker, t=ev.t,
-                                       reason=ev.reason)
-                self._g_inflight.set(dispatch.outstanding)
-                self.sampler.tick(t_base + ev.t)
-                if open_ctx is not None:
-                    t_glob = t_start + ev.t
-                    if slo_active and ev.kind == "done":
-                        self._open_track(batch, decoders, refs, results,
-                                         m, R, t_glob)
-                    settled = slo_active and self._open_settled(
-                        batch, results, m, R)
-                    if not settled and dispatch.outstanding:
-                        # tied arrivals admit after the completion they
-                        # share a timestamp with (completion-before-arrival)
-                        open_ctx.feed.admit_until(t_glob)
-                    if settled:
-                        # every member hit its accuracy SLO: release the
-                        # fleet now, cancelling the outstanding shard work.
-                        # Ties at this instant stay with the feed — the
-                        # run_open loop admits them after the dispatch this
-                        # release triggers (which may free a queue slot)
-                        break
-                if poll is not None:
-                    self._maybe_speculate(dispatch, code, m, shard_times,
-                                          deadlines)
         finally:
             if open_ctx is not None:
                 open_ctx.t_release = t_start + dispatch.elapsed()

@@ -1149,3 +1149,114 @@ def test_ssm_scan_bwd_scratch_is_its_partials(cuda):
         nblk = -(-Dm // 32)
         assert sizes[1] == nblk
         assert sizes[0] == 2 * Bt * nblk * L * S + Bt * Dm * S + Bt * Dm
+
+
+# ------------------------------------------------------ the program's spans
+SPAN_PREFIXES = ("sac.", "sync.", "train.")
+
+
+def _profile_unit(fn):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA); returns the
+    profiler and the program's records of that unit's timed spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    obs.clear_spans()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof, obs.span_records()
+
+
+def _device_events(prof):
+    return [e for e in prof.events() if str(e.device_type).endswith("CUDA")
+            and e.time_range.end > e.time_range.start]
+
+
+def _spans_leave_the_device_timeline_alone(monkeypatch, unit, names, timed):
+    """A profiled ``unit`` with the spans live opens the host ranges
+    ``names``, of which ``timed`` carry resolved stream intervals; puts no
+    event of a span's name on the device's timeline; and launches the same
+    kernels as with ``obs.span`` replaced by the no-op."""
+    from repro_torch import obs
+    from repro_torch.obs.spans import NULL_SPAN
+    unit()                                   # builds and warms
+    live, rows = _profile_unit(unit)
+    host = {e.name for e in live.events()
+            if not str(e.device_type).endswith("CUDA")}
+    assert {n for n in host if n.startswith(SPAN_PREFIXES)} == names
+    assert {r["name"] for r in rows} == timed
+    assert all(r["stream_ms"] is not None and r["stream_ms"] >= 0
+               for r in rows)
+    on_device = {e.name for e in _device_events(live)}
+    assert not [n for n in on_device if n.startswith(SPAN_PREFIXES)]
+    with monkeypatch.context() as m:
+        m.setattr(obs, "span", lambda *a, **k: NULL_SPAN)
+        off, none = _profile_unit(unit)
+    assert none == []
+    assert on_device == {e.name for e in _device_events(off)}
+    return live, rows
+
+
+def test_serving_spans_leave_the_device_timeline_alone(cuda, monkeypatch):
+    """One bf16 L-SAC batch at the paper job's widths (K = 8, N = 24, four
+    requests of 2048 x 32768 by 32768 x 2048): the spans' device-side
+    footprint is nil, and ``sac.products``' stream interval, by the
+    span's timing events, is the ``coded_matmul`` kernels' device time to
+    5 %: the two clocks agree."""
+    from repro_torch.core.registry import make_code
+    from repro_torch.serving import (MasterScheduler, ServeConfig,
+                                     TorchDeviceBackend)
+    code = make_code("layer_sac_ortho", 8, 24, eps=6.25e-3)
+    sched = MasterScheduler(
+        code, TorchDeviceBackend(device=cuda, dtype=torch.bfloat16,
+                                 straggler_frac=0.15),
+        ServeConfig(deadlines=(1.1, 1.6, 3.0, 9.0), batch_size=4, seed=3,
+                    track_errors=False))
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    A = torch.randn((4, 2048, 32768), generator=gen, dtype=torch.float64,
+                    device=cuda)
+    B = torch.randn((4, 32768, 2048), generator=gen, dtype=torch.float64,
+                    device=cuda)
+
+    def batch():
+        for i in range(4):
+            sched.submit(A[i], B[i])
+        assert len(sched.run()) == 4
+
+    prof, rows = _spans_leave_the_device_timeline_alone(
+        monkeypatch, batch, {"sac.batch", "sac.cast", "sac.products",
+                             "sac.decode", "sac.decode.resolve",
+                             "sync.generator", "sync.recombine_weights"},
+        {"sac.cast", "sac.products", "sac.decode"})
+    span_ms = sum(r["stream_ms"] for r in rows if r["name"] == "sac.products")
+    kernel_ms = sum(e.time_range.end - e.time_range.start
+                    for e in _device_events(prof)
+                    if "coded_matmul" in e.name) / 1e3
+    assert kernel_ms > 0
+    assert abs(span_ms - kernel_ms) <= 0.05 * kernel_ms, (span_ms, kernel_ms)
+
+
+def test_training_spans_leave_the_device_timeline_alone(cuda, monkeypatch):
+    """One training step of hymba-smoke: the spans' device-side footprint
+    is nil."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import make_train_step
+    cfg = get_arch("hymba-1.5b", smoke=True)
+    params = init_params(cfg, device=cuda)
+    state = {"opt": adamw_init(dict(params.named_parameters())), "n": 0}
+    step_fn = make_train_step(cfg, device=cuda)
+    tokens = torch.tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 64)), device=cuda)
+
+    def step():
+        _, state["opt"], _ = step_fn(params, state["opt"],
+                                     {"tokens": tokens}, state["n"])
+        state["n"] += 1
+
+    timed = {"train.forward", "train.backward", "train.clip",
+             "train.optimizer", "train.apply"}
+    _spans_leave_the_device_timeline_alone(
+        monkeypatch, step, timed | {"train.step"}, timed)

@@ -231,3 +231,141 @@ def test_open_loop_telemetry_matches_reference():
     assert tracer.raw_events("done") == rtracer.raw_events("done")
     assert [e[:3] for e in tracer.raw_events("milestone")] == \
         [e[:3] for e in rtracer.raw_events("milestone")]
+
+
+# --------------------------------------------------------------- spans
+SERVING_SPANS = {"sac.batch", "sac.cast", "sac.products", "sac.decode",
+                 "sac.decode.resolve", "sync.generator",
+                 "sync.recombine_weights"}
+TRAINING_SPANS = {"train.step", "train.forward", "train.backward",
+                  "train.clip", "train.optimizer", "train.apply"}
+PREFIXES = ("sac.", "sync.", "train.")
+
+
+def _profiled():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _host_spans(prof):
+    return [e for e in prof.events() if e.name.startswith(PREFIXES)]
+
+
+@pytest.fixture
+def spans():
+    from repro_torch.obs import spans as mod
+    mod.clear_spans()
+    yield mod
+    mod.clear_spans()
+
+
+def test_span_without_a_profiler_is_the_shared_noop(spans):
+    s = po.span("sac.decode", device="cpu")
+    assert s is spans.NULL_SPAN and po.span("train.step") is s
+    with s as inside:
+        assert inside is s
+    assert po.span_records() == []
+
+
+def test_span_is_a_function_scope_host_event_under_the_profiler(spans):
+    import torch
+    with _profiled() as prof:
+        with po.span("sac.batch"):
+            with po.span("sac.decode", device="cpu"):
+                torch.ones(4).add_(1)
+    got = _host_spans(prof)
+    assert sorted(e.name for e in got) == ["sac.batch", "sac.decode"]
+    # scope 0 (FUNCTION), never 7 (USER_SCOPE, which the profiler would
+    # also draw on the device's timeline)
+    assert all(e.scope == 0 for e in got)
+    assert all(str(e.device_type).endswith("CPU") for e in got)
+
+
+def test_host_spans_nest_on_the_profilers_clock(spans):
+    """What the idle readers rely on: a span opened inside another is its
+    child in the trace and lies within it."""
+    with _profiled() as prof:
+        with po.span("sac.decode", device="cpu"):
+            with po.span("sac.decode.resolve"):
+                with po.span("sync.recombine_weights"):
+                    pass
+    by = {e.name: e for e in _host_spans(prof)}
+    for child, parent in (("sync.recombine_weights", "sac.decode.resolve"),
+                          ("sac.decode.resolve", "sac.decode")):
+        c, p = by[child], by[parent]
+        assert c.cpu_parent is not None and c.cpu_parent.name == parent
+        assert p.time_range.start <= c.time_range.start
+        assert c.time_range.end <= p.time_range.end
+
+
+def test_only_a_span_given_a_device_is_recorded_and_the_ring_is_bounded(
+        spans):
+    rec = spans.SpanRecorder(size=3)
+    with _profiled():
+        with rec.span("sac.batch"):
+            for name in ("sac.cast", "sac.products", "sac.decode"):
+                with rec.span(name, device="cpu"):
+                    pass
+        with rec.span("train.step"):
+            with rec.span("train.forward", device="cpu"):
+                with rec.span("sync.generator"):
+                    pass
+    rows = rec.records()
+    # the oldest record left the ring; on the CPU there are no events
+    assert rows == [{"name": n, "stream_ms": None}
+                    for n in ("sac.products", "sac.decode", "train.forward")]
+    rec.clear()
+    assert rec.records() == []
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_an_lsac_batch_records_the_serving_vocabulary(spans, dtype):
+    import torch
+    from repro_torch.core.registry import make_code
+    from repro_torch.serving import TorchDeviceBackend
+    code = make_code("layer_sac_ortho", 4, 8, eps=6.25e-3)
+    sched = MasterScheduler(
+        code, TorchDeviceBackend(device="cpu", dtype=getattr(torch, dtype),
+                                 straggler_frac=0.2),
+        ServeConfig(deadlines=(1.1, 1.6, 3.0, 9.0), batch_size=2, seed=3))
+    rng = np.random.default_rng(4)
+    for _ in range(2):
+        sched.submit(rng.standard_normal((8, 16)),
+                     rng.standard_normal((16, 6)))
+    with _profiled() as prof:
+        sched.run()
+    names = [e.name for e in _host_spans(prof)]
+    assert set(names) == SERVING_SPANS
+    # one batch, one decode over its event loop, a cast of the requests
+    # and one of the encoded operands; one generator upload an operand,
+    # and the rest of the transfers the exact resolve's weights
+    assert names.count("sac.batch") == names.count("sac.decode") == 1
+    assert names.count("sac.cast") == 2
+    assert names.count("sync.generator") == 2
+    assert names.count("sync.recombine_weights") == \
+        names.count("sac.decode.resolve") > 0
+    assert sorted(r["name"] for r in po.span_records()) == \
+        ["sac.cast", "sac.cast", "sac.decode", "sac.products"]
+
+
+def test_a_train_step_records_the_training_vocabulary(spans):
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import make_train_step
+    cfg = get_arch("hymba-1.5b", smoke=True).replace(dtype="float32")
+    params = init_params(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    opt = adamw_init(dict(params.named_parameters()))
+    step = make_train_step(cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    with _profiled() as prof:
+        step(params, opt, {"tokens": tokens}, 5)
+    got = _host_spans(prof)
+    assert sorted(e.name for e in got) == sorted(TRAINING_SPANS)
+    assert all(e.cpu_parent.name == "train.step" for e in got
+               if e.name != "train.step")
+    assert sorted(r["name"] for r in po.span_records()) == \
+        sorted(TRAINING_SPANS - {"train.step"})
